@@ -1,0 +1,124 @@
+"""Build the CUDA kernels at first use and load them with ctypes.
+
+Each source under ``repro_torch/csrc`` is compiled by ``nvcc`` into its own
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds)::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o <build dir>/lib<name>-<hash>.so <name>.cu
+
+The library name carries a hash of the source, so an edited source is
+rebuilt and a stale library is never loaded. The build directory is
+``repro_torch/_build`` (listed in ``.gitignore``); ``REPRO_TORCH_BUILD_DIR``
+moves it. Nothing here runs at import: the CPU tests import every module
+of the port, and a machine without ``nvcc`` only fails when a kernel is
+actually launched. :func:`build_all` starts one ``nvcc`` per source, all
+at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("stencil",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """nvcc is missing or refused a source."""
+
+
+def build_dir() -> pathlib.Path:
+    return pathlib.Path(os.environ.get(
+        "REPRO_TORCH_BUILD_DIR", CSRC.parent / "_build"))
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise KernelBuildError("nvcc not found (on PATH or /usr/local/cuda/bin); "
+                           "the CUDA kernels are built on first launch")
+
+
+def _target(name: str) -> pathlib.Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return build_dir() / f"lib{name}-{digest}.so"
+
+
+def _start(name: str) -> tuple[pathlib.Path, subprocess.Popen | None]:
+    """Start nvcc for ``name`` unless its library is already built."""
+    out = _target(name)
+    if out.exists():
+        return out, None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(name: str, out: pathlib.Path,
+            proc: subprocess.Popen | None) -> None:
+    if proc is None:
+        return
+    log, _ = proc.communicate()
+    tmp = pathlib.Path(proc.args[proc.args.index("-o") + 1])
+    if proc.returncode != 0:
+        raise KernelBuildError(f"nvcc failed on {name}.cu "
+                               f"(exit {proc.returncode}):\n{log}")
+    tmp.replace(out)  # atomic: a concurrent loader sees all or nothing
+
+
+def build_all() -> dict[str, pathlib.Path]:
+    """Build every source in parallel (one nvcc each); return the libraries."""
+    started = {name: _start(name) for name in SOURCES}
+    for name, (out, proc) in started.items():
+        _finish(name, out, proc)
+    return {name: out for name, (out, _) in started.items()}
+
+
+def load(name: str = "stencil") -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        out, proc = _start(name)
+        _finish(name, out, proc)
+        lib = _LIBS[name] = _bind(name, ctypes.CDLL(str(out)))
+    return lib
+
+
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
+IP = ctypes.POINTER(ctypes.c_int)
+
+#: argtypes of each launcher (pointers and the stream as c_void_p).
+SIGNATURES = {
+    "stencil": {
+        "repro_rowchunk": [P, P, I, I, I, I, I, I, I, I, I, I, IP, IP, F, I,
+                           P],
+        "repro_dbuf": [P, P, I, I, I, I, I, I, I, I, I, I, I, I, IP, IP, F,
+                       I, P],
+        "repro_temporal": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, IP, IP,
+                           F, I, P],
+        "repro_shifted": [ctypes.POINTER(P), P, I, I, I, I, I, I, I, I, F,
+                          P],
+    },
+}
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,99 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Needs a CUDA card and nvcc; skipped without them. Run on the card with::
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
+
+Every kernel computes the plain version's f32 operations in the same
+order, so each comparison is bit for bit. Shapes are small but cover the
+ragged right and bottom tiles, a radius-2 spec, a bf16 grid of odd width
+(the dbuf kernel's unaligned load path), a batch and a pin mask.
+"""
+import pytest
+import torch
+
+from repro_torch import engine as TE
+from repro_torch.core import stencil as TS
+
+pytestmark = pytest.mark.gpu
+
+RADIUS2 = TS.StencilSpec(offsets=((-2, 0), (-1, 0), (0, 0), (0, -2), (0, 1)),
+                         weights=(0.1, 0.3, 0.2, 0.15, 0.25))
+SPECS = {"jacobi5": TS.jacobi_2d_5pt(), "laplace9": TS.laplace_2d_9pt(),
+         "radius2": RADIUS2}
+SHAPES = [(70, 300), (133, 259), (20, 40)]
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _grid(shape, dtype, dev, seed=0, batch=None):
+    g = torch.Generator().manual_seed(seed)
+    full = shape if batch is None else (batch, *shape)
+    return torch.rand(full, generator=g).to(dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("spec_name", list(SPECS))
+@pytest.mark.parametrize("policy", ["shifted", "rowchunk", "dbuf",
+                                    "temporal"])
+def test_kernel_equals_plain_bitwise(cuda, policy, spec_name, shape, dtype):
+    spec = SPECS[spec_name]
+    u = _grid(shape, dtype, cuda)
+    kw = {"t": 3} if policy == "temporal" else {}
+    before = TE.LAUNCHES[policy]
+    got = getattr(TE, f"stencil_{policy}")(u, spec, bm=16, **kw)
+    torch.cuda.synchronize()
+    assert TE.LAUNCHES[policy] == before + 1
+    want = getattr(TE, f"stencil_{policy}_plain")(u, spec, **kw)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_temporal_mask_and_batch_bitwise(cuda, dtype):
+    spec = TS.jacobi_2d_5pt()
+    u = _grid((70, 300), dtype, cuda, seed=1, batch=3)
+    mask = torch.zeros(u.shape[-2:], dtype=torch.bool, device=cuda)
+    mask[:5, :] = mask[:, :7] = True
+    mask[30:33, 100:140] = True
+    got = TE.stencil_temporal(u, spec, t=4, mask=mask)
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=4,
+                                                      mask=mask))
+    assert torch.equal(got[:, mask], u[:, mask])
+
+
+def test_run_schedules_equal_plain_schedules(cuda):
+    spec = TS.laplace_2d_9pt()
+    u = _grid((70, 300), torch.float32, cuda, seed=2)
+    got = TE.run(u, spec, iters=11, t=4)
+    want = u
+    for _ in range(2):
+        want = TE.stencil_temporal_plain(want, spec, t=4)
+    for _ in range(3):
+        want = TE.stencil_rowchunk_plain(want, spec)
+    assert torch.equal(got, want)
+    assert torch.equal(TE.run(u.clone(), spec, iters=11, t=4, donate=True),
+                       want)
+    lanes = _grid((70, 300), torch.float32, cuda, seed=3, batch=2)
+    batched = TE.run_batched(lanes, spec, iters=11, t=4)
+    for i in range(2):
+        assert torch.equal(batched[i], TE.run(lanes[i].clone(), spec,
+                                              iters=11, t=4))
+
+
+def test_bad_inputs_raise(cuda):
+    spec = TS.jacobi_2d_5pt()
+    u = _grid((20, 40), torch.float64, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        TE.stencil_rowchunk(u, spec)
+    u = _grid((20, 40), torch.float32, cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        TE.stencil_rowchunk(u, spec)
+    with pytest.raises(TE.PlanError, match="2-D tile plan"):
+        TE.stencil_rowchunk(u.contiguous(), spec, device="cpu_ref")

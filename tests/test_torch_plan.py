@@ -1,0 +1,210 @@
+"""The port's device models and planner against the JAX package's.
+
+Row-block plans (every model but a GPU) must equal the reference's; the
+``gpu_sm90`` 2-D tile plan must fit the paper's 1026 x 9218 grid where the
+reference's full-width window cannot.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.analysis.diagnostics import budget_message as j_budget_message
+from repro.core import stencil as JS
+from repro.engine import device as JD
+from repro.engine import plan as JP
+from repro_torch.analysis.diagnostics import budget_message
+from repro_torch.core import stencil as TS
+from repro_torch.engine import device as TD
+from repro_torch.engine import plan as TP
+from repro_torch.obs import metrics
+
+RADIUS2 = ((((-2, 0), (-1, 0), (0, 0), (0, -2), (0, 1)),
+            (0.1, 0.3, 0.2, 0.15, 0.25)))
+SPECS = {
+    "jacobi5": (JS.jacobi_2d_5pt(), TS.jacobi_2d_5pt()),
+    "laplace9": (JS.laplace_2d_9pt(), TS.laplace_2d_9pt()),
+    "radius2": (JS.StencilSpec(*RADIUS2), TS.StencilSpec(*RADIUS2)),
+}
+DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+ROW_BLOCK_DEVICES = ["cpu_ref", "tpu_v5e", "grayskull_e150"]
+
+
+def test_device_registry_matches_reference():
+    assert TD.available_devices() == JD.available_devices()
+    for name in TD.available_devices():
+        assert (dataclasses.asdict(TD.get_device(name))
+                == dataclasses.asdict(JD.get_device(name))), name
+
+
+def test_detect_without_a_card_is_cpu_ref():
+    want = "gpu_sm90" if (torch.cuda.is_available() and
+                          torch.cuda.get_device_capability(0) == (9, 0)) \
+        else "cpu_ref"
+    assert TD.detect().name == want
+
+
+def test_budget_message_matches_reference():
+    dev = TD.get_device("grayskull_e150")
+    assert budget_message("x", 3 * 2**20, dev) == j_budget_message(
+        "x", 3 * 2**20, JD.get_device("grayskull_e150"))
+
+
+def _same_plan(jp, tp):
+    for f in ("policy", "shape", "dtype", "bm", "t", "window_rows",
+              "vmem_bytes", "masked", "nblocks", "interior_shape", "radius",
+              "dtype_bytes"):
+        assert getattr(tp, f) == getattr(jp, f), f
+    assert dataclasses.asdict(tp.device) == dataclasses.asdict(jp.device)
+    assert tp.bn == tp.interior_shape[1]
+    assert tp.window_cols == tp.shape[1]
+
+
+@pytest.mark.parametrize("device", ROW_BLOCK_DEVICES)
+@pytest.mark.parametrize("policy", ["shifted", "rowchunk", "dbuf",
+                                    "temporal"])
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_row_block_plans_equal_reference(device, policy, spec_name):
+    js, ts = SPECS[spec_name]
+    r = ts.radius
+    for (jd, td) in DTYPES:
+        for shape, bm, t in [((32 + 2 * r, 64 + 2 * r), None, None),
+                             ((30 + 2 * r, 128 + 2 * r), 7, 3),
+                             ((258, 258), 64, 4)]:
+            try:
+                jp = JP.plan_for(shape, jd, js, policy, bm=bm, t=t,
+                                 device=device)
+            except JP.PlanError as e:
+                with pytest.raises(TP.PlanError) as got:
+                    TP.plan_for(shape, td, ts, policy, bm=bm, t=t,
+                                device=device)
+                assert str(got.value) == str(e)
+                continue
+            _same_plan(jp, TP.plan_for(shape, td, ts, policy, bm=bm, t=t,
+                                       device=device))
+
+
+@pytest.mark.parametrize("device", ROW_BLOCK_DEVICES)
+def test_masked_and_budget_errors_equal_reference(device):
+    js, ts = SPECS["jacobi5"]
+    jp = JP.plan_for((66, 130), jnp.float32, js, "temporal", t=3,
+                     device=device, masked=True)
+    _same_plan(jp, TP.plan_for((66, 130), torch.float32, ts, "temporal",
+                               t=3, device=device, masked=True))
+    # Budget overflow: the same sentence, word for word.
+    args = ((4098, 4098), "temporal")
+    with pytest.raises(JP.PlanError) as want:
+        JP.plan_for(args[0], jnp.float32, js, args[1], bm=4096, t=64,
+                    device=device)
+    with pytest.raises(TP.PlanError) as got:
+        TP.plan_for(args[0], torch.float32, ts, args[1], bm=4096, t=64,
+                    device=device)
+    assert str(got.value) == str(want.value)
+
+
+def test_validation_errors_equal_reference():
+    for args in [((34, 130), JS.advection_1d_3pt(), TS.advection_1d_3pt(),
+                  "rowchunk", {}),
+                 ((2, 130), JS.jacobi_2d_5pt(), TS.jacobi_2d_5pt(),
+                  "rowchunk", {}),
+                 ((34, 130), JS.jacobi_2d_5pt(), TS.jacobi_2d_5pt(),
+                  "temporal", {"t": 0}),
+                 ((34, 130), JS.jacobi_2d_5pt(), TS.jacobi_2d_5pt(),
+                  "warp9", {}),
+                 ((34, 130), JS.jacobi_2d_5pt(), TS.jacobi_2d_5pt(),
+                  "dbuf", {"masked": True})]:
+        shape, js, ts, policy, kw = args
+        with pytest.raises(JP.PlanError) as want:
+            JP.plan_for(shape, jnp.float32, js, policy, device="cpu_ref",
+                        **kw)
+        with pytest.raises(TP.PlanError) as got:
+            TP.plan_for(shape, torch.float32, ts, policy, device="cpu_ref",
+                        **kw)
+        assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("jd,td", DTYPES)
+@pytest.mark.parametrize("policy,t", [("rowchunk", None), ("dbuf", None),
+                                      ("temporal", 8)])
+def test_gpu_2d_plan_fits_paper_grid(policy, t, jd, td):
+    """The reference's full-width window cannot fit 227 KiB on a 9218-wide
+    grid; the port's 2-D tiles do."""
+    ts = TS.jacobi_2d_5pt()
+    with pytest.raises(JP.PlanError):
+        JP.plan_for((1026, 9218), jd, JS.jacobi_2d_5pt(), policy, t=t,
+                    device="gpu_sm90")
+    plan = TP.plan_for((1026, 9218), td, ts, policy, t=t, device="gpu_sm90")
+    assert plan.tiled_2d
+    assert plan.vmem_bytes <= TD.get_device("gpu_sm90").fast_memory_bytes
+    assert (plan.bm, plan.bn) == TP.GPU_TILES[policy]
+    assert plan.t == (t or 1)
+    assert plan.halo == (8 if policy == "temporal" else 1)
+    assert plan.window_rows == plan.bm + 2 * plan.halo
+    assert plan.window_cols == plan.bn + 2 * plan.halo
+    assert plan.nblocks == (1024 // plan.bm) * (9216 // plan.bn) >= 2 * 132
+    assert f"bn={plan.bn}" in plan.describe()
+
+
+def test_gpu_2d_plan_edges_and_limits():
+    ts = TS.jacobi_2d_5pt()
+    # Tiles clip to a small interior and need not divide it.
+    small = TP.plan_for((32, 66), torch.float32, ts, "temporal", t=4,
+                        device="gpu_sm90")
+    assert (small.bm, small.bn) == (30, 64) and small.nblocks == 1
+    ragged = TP.plan_for((102, 302), torch.float32, ts, "rowchunk",
+                         bm=64, bn=128, device="gpu_sm90")
+    assert (ragged.row_tiles, ragged.col_tiles) == (2, 3)
+    # Radius-2 temporal: a t*r = 16-deep halo still fits.
+    r2 = SPECS["radius2"][1]
+    assert TP.plan_for((1028, 9220), torch.float32, r2, "temporal", t=8,
+                       device="gpu_sm90").halo == 16
+    # t larger than the tile allows is a PlanError, never a silent answer.
+    with pytest.raises(TP.PlanError, match="gpu_sm90"):
+        TP.plan_for((1026, 9218), torch.float32, ts, "temporal", t=64,
+                    device="gpu_sm90")
+    # A masked temporal tile pays one byte a cell for the pin set.
+    m = TP.plan_for((1026, 9218), torch.float32, ts, "temporal", t=8,
+                    device="gpu_sm90", masked=True)
+    cells = (32 + 16) * (128 + 16)
+    assert m.vmem_bytes == 9 * cells
+    assert TP.plan_for((1026, 9218), torch.float32, ts, "shifted",
+                       device="gpu_sm90").vmem_bytes == 0
+    too_many = TS.StencilSpec(tuple((0, k % 3 - 1) for k in range(33)),
+                              (0.01,) * 33)
+    with pytest.raises(TP.PlanError, match="taps"):
+        TP.plan_for((34, 66), torch.float32, too_many, "rowchunk",
+                    device="gpu_sm90")
+
+
+def test_dbuf_pitch_covers_the_word_shift():
+    # f32: one element a word, no shift; bf16: two, up to one element of
+    # shift on the left, rounded up to whole words.
+    assert TP.dbuf_pitch_words(128, 1, 4) == 130
+    assert TP.dbuf_pitch_words(128, 1, 2) == 66
+    assert TP.dbuf_pitch_words(127, 2, 2) == 66
+
+
+def test_plan_cache_hits_and_counters():
+    TP.plan_cache_clear()
+    snap = metrics.snapshot()["counters"]
+    hit0, miss0 = (snap.get("engine.plan.hit", 0),
+                   snap.get("engine.plan.miss", 0))
+    ts = TS.jacobi_2d_5pt()
+    p1 = TP.plan_for((34, 130), torch.float32, ts, "rowchunk", bm=16,
+                     device="cpu_ref")
+    p2 = TP.plan_for((34, 130), "float32", ts, "rowchunk", bm=16,
+                     device="cpu_ref")
+    assert p1 is p2
+    info = TP.plan_cache_info()
+    assert info.misses == 1 and info.hits == 1
+    snap = metrics.snapshot()["counters"]
+    assert snap["engine.plan.miss"] - miss0 == 1
+    assert snap["engine.plan.hit"] - hit0 == 1
+
+
+def test_pick_bm_matches_reference():
+    for h, bm in [(1024, 256), (30, 7), (12, 100)]:
+        assert TP.pick_bm(h, bm) == JP.pick_bm(h, bm)
+    with pytest.warns(UserWarning, match="bm=1"):
+        assert TP.pick_bm(1021, 64) == 1

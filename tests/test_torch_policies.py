@@ -1,0 +1,169 @@
+"""Each plain policy of the port against the JAX policy in interpret mode.
+
+The JAX side runs its Pallas kernels in interpret mode against the
+``cpu_ref`` model, as ``tests/test_engine.py`` does. Tolerances are that
+file's: f32 1e-6 for one sweep, rtol 1e-5 / atol 1e-6 for several, bf16
+2e-2. On a CPU tensor each port wrapper runs its plain version, so the
+wrapper and the plain function agree bit for bit.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import engine as JE
+from repro.core import stencil as JS
+from repro_torch import engine as TE
+from repro_torch.core import stencil as TS
+from repro_torch.interop import grid_from_numpy, grid_to_numpy
+
+RADIUS2 = ((((-2, 0), (-1, 0), (0, 0), (0, -2), (0, 1)),
+            (0.1, 0.3, 0.2, 0.15, 0.25)))
+SPECS = {
+    "jacobi5": (JS.jacobi_2d_5pt(), TS.jacobi_2d_5pt()),
+    "laplace9": (JS.laplace_2d_9pt(), TS.laplace_2d_9pt()),
+    "advection2d": (JS.advection_2d_3pt(), TS.advection_2d_3pt()),
+    "radius2": (JS.StencilSpec(*RADIUS2), TS.StencilSpec(*RADIUS2)),
+}
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+ONE_SWEEP = ["shifted", "rowchunk", "dbuf"]
+
+
+def _problem(ny, nx, r, dtype, seed=0):
+    """A ringed grid with a fixed ring and noise inside, in both packages."""
+    rng = np.random.default_rng(seed)
+    a = np.zeros((ny + 2 * r, nx + 2 * r), np.float32)
+    a[:, :r] = 1.0
+    a[r:-r, r:-r] = rng.uniform(0, 1, (ny, nx))
+    jd, td = DTYPES[dtype]
+    return jnp.asarray(a).astype(jd), grid_from_numpy(a, device="cpu").to(td)
+
+
+def _close(ju, tu, dtype, multi=False):
+    tol = (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
+           else dict(rtol=1e-5 if multi else 1e-6, atol=1e-6))
+    np.testing.assert_allclose(grid_to_numpy(tu.to(torch.float32)),
+                               np.asarray(ju.astype(jnp.float32)), **tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("spec_name", list(SPECS))
+@pytest.mark.parametrize("policy", ONE_SWEEP)
+def test_one_sweep_policy_matches_jax(policy, spec_name, dtype):
+    js, ts = SPECS[spec_name]
+    ju, tu = _problem(30, 62, ts.radius, dtype, seed=1)
+    want = getattr(JE, f"stencil_{policy}")(ju, js, bm=10, interpret=True,
+                                            device="cpu_ref")
+    plain = getattr(TE, f"stencil_{policy}_plain")(tu, ts, bm=10)
+    got = getattr(TE, f"stencil_{policy}")(tu, ts, bm=10, device="cpu_ref")
+    assert torch.equal(got, plain) and got.dtype == tu.dtype
+    _close(want, got, dtype)
+    # The ring is carried through untouched.
+    r = ts.radius
+    assert torch.equal(got[..., :r, :], tu[..., :r, :])
+    assert torch.equal(got[..., :, -r:], tu[..., :, -r:])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_temporal_matches_jax(spec_name, dtype):
+    js, ts = SPECS[spec_name]
+    ju, tu = _problem(30, 62, ts.radius, dtype, seed=2)
+    want = JE.stencil_temporal(ju, js, t=4, bm=10, interpret=True,
+                               device="cpu_ref")
+    plain = TE.stencil_temporal_plain(tu, ts, t=4)
+    got = TE.stencil_temporal(tu, ts, t=4, bm=10, device="cpu_ref")
+    assert torch.equal(got, plain)
+    _close(want, got, dtype, multi=True)
+
+
+def test_temporal_plain_is_t_sweeps_rounded_once():
+    """In f32 the fused plain version is the oracle applied t times."""
+    ts = TS.laplace_2d_9pt()
+    _, tu = _problem(30, 62, 1, "float32", seed=3)
+    want = tu
+    for _ in range(5):
+        want = TS.apply_stencil(want, ts)
+    assert torch.equal(TE.stencil_temporal_plain(tu, ts, t=5), want)
+    # In bf16 it keeps f32 across the sweeps: one rounding, not five.
+    _, tb = _problem(30, 62, 1, "bfloat16", seed=3)
+    fused = TE.stencil_temporal_plain(tb, ts, t=5)
+    f32_then_round = TE.stencil_temporal_plain(tb.float(), ts, t=5).to(
+        torch.bfloat16)
+    assert torch.equal(fused, f32_then_round)
+
+
+def test_temporal_mask_equal_to_ring_is_unmasked():
+    ts = TS.jacobi_2d_5pt()
+    _, tu = _problem(20, 64, 1, "float32", seed=4)
+    mask = torch.zeros(tu.shape, dtype=torch.bool)
+    mask[:1, :] = mask[-1:, :] = mask[:, :1] = mask[:, -1:] = True
+    assert torch.equal(TE.stencil_temporal(tu, ts, t=3, mask=mask),
+                       TE.stencil_temporal(tu, ts, t=3))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_temporal_mask_matches_jax_on_its_exact_region(dtype):
+    """The distributed-shard pin set of ``tests/test_engine.py``: pinned
+    cells hold, perturbed halo cells reach the valid region, and the
+    region >= d from any unpinned edge matches the JAX kernel."""
+    t, d = 3, 3
+    js, ts = SPECS["jacobi5"]
+    ju, tu = _problem(22, 64, 1, dtype, seed=5)
+    h, w = tu.shape
+    mask = np.zeros((h, w), bool)
+    mask[:d, :] = mask[:, :d] = True
+    tmask = torch.from_numpy(mask)
+    got = TE.stencil_temporal(tu, ts, t=t, mask=tmask)
+    want = JE.stencil_temporal(ju, js, t=t, interpret=True,
+                               device="cpu_ref", mask=jnp.asarray(mask))
+    assert torch.equal(got[tmask], tu[tmask])
+    tu2 = torch.where(tmask, tu, tu + 0.125)
+    got2 = TE.stencil_temporal(tu2, ts, t=t, mask=tmask)
+    assert torch.equal(got2[tmask], tu[tmask])
+    assert not torch.equal(got2[d:h - d, d:w - d], got[d:h - d, d:w - d])
+    _close(want[:h - d, :w - d], got[:h - d, :w - d], dtype, multi=True)
+    # f32: equal to the masked-sweep oracle, bit for bit.
+    if dtype == "float32":
+        oracle = tu
+        for _ in range(t):
+            oracle = torch.where(tmask, tu, TS.apply_stencil(oracle, ts))
+        assert torch.equal(got[:h - d, :w - d], oracle[:h - d, :w - d])
+
+
+def test_plain_versions_take_a_batch():
+    ts = TS.laplace_2d_9pt()
+    lanes = [_problem(14, 30, 1, "float32", seed=s)[1] for s in range(3)]
+    batch = torch.stack(lanes)
+    for name in ONE_SWEEP + ["temporal"]:
+        fn = getattr(TE, f"stencil_{name}")
+        kw = {"t": 2} if name == "temporal" else {}
+        got = fn(batch, ts, **kw)
+        for i, lane in enumerate(lanes):
+            assert torch.equal(got[i], fn(lane, ts, **kw)), name
+
+
+def test_out_buffer_receives_the_result():
+    ts = TS.jacobi_2d_5pt()
+    _, tu = _problem(14, 30, 1, "float32", seed=6)
+    out = tu.clone()
+    res = TE.stencil_rowchunk(tu, ts, out=out)
+    assert res is out and torch.equal(out, TE.stencil_rowchunk(tu, ts))
+
+
+def test_wrappers_refuse_other_devices():
+    ts = TS.jacobi_2d_5pt()
+    u = torch.zeros(16, 32, device="meta")
+    for name in ONE_SWEEP + ["temporal"]:
+        with pytest.raises(ValueError, match="CUDA or CPU"):
+            getattr(TE, f"stencil_{name}")(u, ts)
+
+
+def test_plain_runs_do_not_count_as_launches():
+    TE.reset_launch_counts()
+    ts = TS.jacobi_2d_5pt()
+    _, tu = _problem(14, 30, 1, "float32", seed=7)
+    TE.run(tu, ts, iters=5, t=2)
+    assert TE.LAUNCHES == {"shifted": 0, "rowchunk": 0, "dbuf": 0,
+                           "temporal": 0}
