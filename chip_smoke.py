@@ -24,7 +24,25 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 5. the other paths: ``step`` (auto picks dbuf, K3), the ``shifted``
    policy (K4), ``run_converged`` with a tolerance that stops early, and
    ``run_batched`` with B=4, each lane equal to its solo run bit for bit;
-6. one JSON line listing the kernels, then the card's name and power
+6. K8 (flash attention) against its plain PyTorch version on the card, at
+   the JAX package's test shapes and at the serving shape B=4, S=2048,
+   H=16, K=2, hd=128 causal, in f32 (rtol=atol=2e-5) and bf16 (3e-2),
+   the JAX package's own tolerances; at the serving shape the kernel, its
+   plain version and ``scaled_dot_product_attention`` (a yardstick only)
+   are timed beside the bound;
+7. LM serving, the second main path: ``qwen2.5-3b`` at full width (36
+   layers, d 2048) with ``attn_impl="flash"``, random weights from a
+   seeded generator, ``ServeEngine(batch_size=4)`` serving 4 requests of
+   2048-token prompts and 32 new greedy tokens. Every request must get 32
+   tokens within the padded vocab, K8 must launch 36 times (once a layer
+   in the one prefill wave), and the prefill logits must be within
+   rtol=5e-2, atol=8e-2 of the same weights through ``attn_impl="jnp"``
+   (the JAX package's own bound); both are also compared, as a
+   diagnostic, with the same prefill in f32 compute. Prefill ms and
+   decode ms a step (wall, and the kernels' device time from
+   ``torch.profiler``: the device's busy share), tok/s and peak memory
+   are printed;
+8. one JSON line listing the kernels, then the card's name and power
    limit, then the result line.
 
 It imports nothing of JAX and nothing of the ``repro`` package, and exits
@@ -32,13 +50,16 @@ non-zero without a card or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -46,12 +67,15 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch import engine  # noqa: E402
+from repro_torch import configs, engine  # noqa: E402
 from repro_torch.core.stencil import (StencilSpec, apply_stencil,  # noqa: E402
                                       jacobi_2d_5pt, laplace_2d_9pt,
                                       make_laplace_problem)
 from repro_torch.kernels import build  # noqa: E402
-from repro_torch.obs.timing import device_ms  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
+from repro_torch.obs.timing import device_ms, kernel_ms  # noqa: E402
 
 NY, NX, ITERS, T = 1024, 9216, 1003, 8
 RADIUS2 = StencilSpec(offsets=((-2, 0), (-1, 0), (0, 0), (0, -2), (0, 1)),
@@ -66,6 +90,15 @@ KERNELS = {  # policy -> (id, TPU kernel it replaces)
     "shifted": ("K4", "src/repro/engine/policies.py:83"),
 }
 SOURCE = "src/repro_torch/csrc/stencil.cu"
+FLASH = ("K8", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:82")
+# (B, S, H, K, hd, causal, bq=bk): the shapes of tests/test_kernels_flash.py
+# at their 64-row blocks, then the serving prefill's shape.
+FLASH_SHAPES = [(2, 128, 4, 2, 32, True, 64), (1, 256, 8, 8, 16, True, 64),
+                (2, 128, 4, 1, 32, False, 64), (1, 64, 2, 2, 64, True, 64),
+                (4, 2048, 16, 2, 128, True, 512)]
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+PROMPT, NEW, WAVE = 2048, 32, 4
 # (memory bytes/s, f32 FLOP/s outside the tensor cores), data-sheet peaks.
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
@@ -273,6 +306,166 @@ def phase_paths(stats) -> None:
     print("run_batched: every lane bitwise equal to its solo run")
 
 
+def flash_bound_ms(q, k, causal: bool, peaks) -> tuple[float, str]:
+    """Least time for attention on these inputs: q, k, v read once and o
+    written once, against 4*hd f32 operations for every (query row, key)
+    pair the causal mask keeps."""
+    bw, flops = peaks
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
+             else sq * sk)
+    ops = 4 * hd * pairs * b * h
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    b_ms, o_ms = nbytes / bw * 1e3, ops / flops * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def phase_flash(peaks, stats) -> None:
+    print("== phase 6: K8 flash attention vs its plain version ==")
+    s = stats.setdefault("flash", {"max_abs_err": 0.0})
+    for b, sq, h, kh, hd, causal, blk in FLASH_SHAPES:
+        for dname, dtype in DTYPES.items():
+            g = torch.Generator(device="cuda").manual_seed(sq + h)
+            q, k, v = (torch.randn(shape, generator=g, device="cuda"
+                                   ).to(dtype)
+                       for shape in ((b, sq, h, hd), (b, sq, kh, hd),
+                                     (b, sq, kh, hd)))
+            got = flash.flash_attention_local(q, k, v, causal=causal,
+                                              bq=blk, bk=blk)
+            want = flash.flash_attention_local_plain(q, k, v, causal=causal,
+                                                     bq=blk, bk=blk)
+            torch.cuda.synchronize()
+            tol = FLASH_TOL[dname]
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            worst = float((diff - tol * want.float().abs()).max())
+            label = f"B={b} S={sq} H={h} K={kh} hd={hd} causal={causal}"
+            check(got.shape == q.shape and got.dtype == dtype
+                  and bool(got.float().isfinite().all()) and worst <= tol,
+                  f"K8 {label} {dname}: max |err| {err} over rtol=atol={tol}")
+            s["max_abs_err"] = max(s["max_abs_err"], err)
+            if sq != PROMPT:
+                print(f"K8 {label:42s} {dname:8s} max|err|={err:.3e} "
+                      f"(tol {tol:g})")
+                continue
+            k_ms = device_ms(lambda: flash.flash_attention_local(
+                q, k, v, causal=causal), reps=5, inner=5)
+            p_ms = device_ms(lambda: flash.flash_attention_local_plain(
+                q, k, v, causal=causal), reps=3, inner=2)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True), reps=5,
+                inner=5)
+            b_ms, b_by = flash_bound_ms(q, k, causal, peaks)
+            print(f"K8 {label:42s} {dname:8s} max|err|={err:.3e} "
+                  f"(tol {tol:g}) kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
+                  f"bound_ms={b_ms:.6f} ({b_by}) sdpa_ms={lib_ms:.6f}")
+            s[dname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms}
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn()`` ending in a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def phase_serve(smi: str, stats) -> None:
+    cfg = dataclasses.replace(configs.get_config("qwen2.5-3b"),
+                              attn_impl="flash")
+    print(f"== phase 7: LM serving, {cfg.name} at full width ({cfg.n_layers}"
+          f" layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+          f"vocab {cfg.vocab_size}), attn_impl=flash, {WAVE} x {PROMPT} "
+          f"tokens + {NEW} new ==")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"random init of {sum(p.numel() for p in model.parameters())} "
+          f"params in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(WAVE, PROMPT),
+                           dtype=np.int32)
+    eng = ServeEngine(model, batch_size=WAVE, max_len=PROMPT + NEW + 8)
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=NEW) for p in prompts]
+
+    torch.cuda.reset_peak_memory_stats()
+    engine.reset_launch_counts()
+    flash.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.generate(requests())
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = {**engine.LAUNCHES, **flash.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"launches: {counts}")
+    check(counts["flash_attention"] == cfg.n_layers
+          and sum(engine.LAUNCHES.values()) == 0,
+          f"one prefill wave must launch K8 once a layer ({cfg.n_layers})")
+    stats["flash"].update(launches=counts["flash_attention"],
+                          path="ServeEngine.generate(qwen2.5-3b, flash)")
+    for i, r in enumerate(done):
+        check(len(r.generated) == NEW
+              and all(0 <= t < cfg.padded_vocab for t in r.generated),
+              f"request {i}: {len(r.generated)} tokens, ids {r.generated}")
+    print(f"req0 -> {done[0].generated[:8]} ...; every request got {NEW} "
+          f"tokens in [0, {cfg.padded_vocab})")
+
+    toks = torch.from_numpy(prompts.astype(np.int64)).cuda()
+    got, cache = eng._prefill(toks)
+    ref = ServeEngine(model.with_config(dataclasses.replace(
+        cfg, attn_impl="jnp")), batch_size=WAVE, max_len=eng.max_len)
+    want, _ = ref._prefill(toks)
+    diff = (got - want).abs()
+    err = float(diff.max())
+    worst = float((diff - 5e-2 * want.abs()).max())
+    print(f"prefill logits, flash vs jnp: max |diff| {err:.6e}, largest "
+          f"excess over rtol*|jnp| {worst:.6e} (atol 8e-2), logit range "
+          f"[{float(want.min()):.3f}, {float(want.max()):.3f}]")
+    check(bool(got.isfinite().all()) and worst <= 8e-2,
+          f"flash prefill logits off the jnp path: max |diff| {err}")
+
+    exact, _ = ServeEngine(model.with_config(dataclasses.replace(
+        cfg, dtype=torch.float32)), batch_size=WAVE,
+        max_len=eng.max_len)._prefill(toks)
+    print(f"the same prefill in f32 compute, max |diff| of flash (bf16) "
+          f"{float((got - exact).abs().max()):.6e}, of jnp (bf16) "
+          f"{float((want - exact).abs().max()):.6e}")
+
+    step = torch.from_numpy(np.asarray([[r.generated[0]] for r in done],
+                                       np.int64)).cuda()
+    prefill = wall_ms(lambda: eng._prefill(toks), reps=3)
+    decode = wall_ms(lambda: [eng._decode(cache, step) for _ in range(16)],
+                     reps=3) / 16
+    prefill_dev, prefill_n = kernel_ms(lambda: eng._prefill(toks))
+    decode_dev, decode_n = kernel_ms(lambda: eng._decode(cache, step))
+    print(f"device kernels (torch.profiler): prefill {prefill_dev:.3f} ms "
+          f"in {prefill_n} kernels (busy {prefill_dev / prefill:.1%} of its "
+          f"wall), decode step {decode_dev:.3f} ms in {decode_n} kernels "
+          f"(busy {decode_dev / decode:.1%} of its wall)")
+    t0 = time.perf_counter()
+    again = eng.generate(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    new = sum(len(r.generated) for r in again)
+    check([r.generated for r in again] == [r.generated for r in done],
+          "a second greedy run must give the same tokens")
+    print(f"prefill_ms={prefill:.3f} (wall, {WAVE}x{PROMPT} tokens) "
+          f"decode_ms_per_step={decode:.3f} (wall, {WAVE} tokens a step) "
+          f"generate: first run {first:.3f}s (includes the one-time bf16 "
+          f"weight casts), second {wall:.3f}s = {new / wall:.1f} tok/s "
+          f"({new} new tokens); peak memory {peak:.2f} GiB; on {smi}")
+
+
 def main() -> None:
     smi, peaks = card()
     print(f"== phase 1: card: {smi} ==")
@@ -288,6 +481,8 @@ def main() -> None:
     phase_kernels(peaks, stats)
     phase_main(smi, stats)
     phase_paths(stats)
+    phase_flash(peaks, stats)
+    phase_serve(smi, stats)
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
         s = stats[policy]
@@ -297,6 +492,14 @@ def main() -> None:
             "path": s["path"], "max_abs_err": s["max_abs_err"],
             "dtype": "bfloat16", **s["bfloat16"],
             "float32": s["float32"]})
+    kid, source, replaces = FLASH
+    s = stats["flash"]
+    kernels.append({
+        "name": f"{kid} flash_attention", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": s["launches"], "path": s["path"],
+        "max_abs_err": s["max_abs_err"], "dtype": "bfloat16",
+        "shape": "B=4 S=2048 H=16 K=2 hd=128 causal", **s["bfloat16"],
+        "float32": s["float32"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,12 @@ grid. Both cross as plain data, so the port never imports ``repro`` or
   ``ml_dtypes`` array, which is widened to f32 (exact) and then narrowed
   to ``torch.bfloat16`` (exact again), so both packages start from the
   same bits.
+
+An LM's state is its parameter tree. :func:`lm_params_from_jax` takes the
+JAX ``DecoderLM``'s tree as numpy arrays (the stacked ``layers`` leaves
+with their leading ``n_layers`` axis, plus ``embedding`` and ``ln_f``)
+and loads it into a port ``DecoderLM``; both store f32, so the load is
+exact. :func:`load_params` loads one module from a nested dict.
 """
 from __future__ import annotations
 
@@ -43,3 +49,53 @@ def grid_to_numpy(u: torch.Tensor) -> np.ndarray:
     if u.dtype == torch.bfloat16:
         u = u.to(torch.float32)
     return u.numpy()
+
+
+def _flatten(tree, prefix=""):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _flatten(val, name + ".")
+        else:
+            yield name, val
+
+
+def _load_flat(module: torch.nn.Module, flat: dict) -> torch.nn.Module:
+    named = dict(module.named_parameters())
+    if set(flat) != set(named):
+        raise KeyError(f"parameter names differ: missing "
+                       f"{sorted(set(named) - set(flat))}, unknown "
+                       f"{sorted(set(flat) - set(named))}")
+    with torch.no_grad():
+        for name, arr in flat.items():
+            arr = np.asarray(arr)
+            if arr.dtype.name == "bfloat16":
+                arr = arr.astype(np.float32)
+            p = named[name]
+            if tuple(arr.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {arr.shape} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(torch.tensor(arr))  # copies: jax arrays are read-only
+    return module
+
+
+def load_params(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
+    """Copy the nested dict ``tree`` of arrays into ``module``'s parameters
+    of the same dotted names; every parameter must be given, with its
+    shape."""
+    return _load_flat(module, dict(_flatten(tree)))
+
+
+def lm_params_from_jax(params: dict, cfg, *, device="cuda"):
+    """A port ``DecoderLM`` for ``cfg`` holding the JAX parameter tree
+    ``params`` (numpy leaves; ``layers`` leaves stacked over layers)."""
+    from repro_torch.models.lm import DecoderLM
+    flat = dict(_flatten({k: v for k, v in params.items()
+                          if k != "layers"}))
+    for name, arr in _flatten(params["layers"]):
+        if len(arr) != cfg.n_layers:
+            raise ValueError(f"layers.{name}: leading axis {len(arr)} != "
+                             f"n_layers {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            flat[f"layers.{i}.{name}"] = arr[i]
+    return _load_flat(DecoderLM(cfg, device=require_device(device)), flat)

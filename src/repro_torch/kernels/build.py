@@ -25,7 +25,7 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("stencil",)
+SOURCES = ("stencil", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -100,6 +100,7 @@ def load(name: str = "stencil") -> ctypes.CDLL:
 
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
 IP = ctypes.POINTER(ctypes.c_int)
+F32 = ctypes.c_float
 
 #: argtypes of each launcher (pointers and the stream as c_void_p).
 SIGNATURES = {
@@ -112,6 +113,10 @@ SIGNATURES = {
                            F, I, P],
         "repro_shifted": [ctypes.POINTER(P), P, I, I, I, I, I, I, I, I, F,
                           P],
+    },
+    "flash_attention": {
+        "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F32,
+                                  P],
     },
 }
 

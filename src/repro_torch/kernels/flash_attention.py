@@ -1,0 +1,151 @@
+"""Fused flash-attention forward (K8): the CUDA kernel and its plain version.
+
+Twin of ``repro.kernels.flash_attention``. :func:`flash_attention_local`
+follows the device of its inputs: on CUDA tensors it launches the
+hand-written kernel in ``repro_torch/csrc/flash_attention.cu`` (or
+raises; it never falls back), on CPU tensors it runs
+:func:`flash_attention_local_plain`.
+
+The plain version is the TPU kernel's loop written with tensor ops: for
+each block of ``bq`` query rows, an online softmax over key blocks of
+``bk`` in order, causal key blocks past the block's last query skipped,
+everything in f32 (P included), ``acc / max(l, 1e-30)`` rounded once to
+``q.dtype``. The CUDA kernel computes the same function with its own
+64-key tiles (see the note in its source); ``bq``/``bk`` therefore only
+shape the plain version, and both keep the reference's precondition that
+they divide the sequence lengths.
+
+Forward only (serving prefill needs no gradient). :data:`LAUNCHES`
+counts kernel launches (never the plain version).
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+
+#: Kernel launches since the last :func:`reset_launch_counts`.
+LAUNCHES: dict[str, int] = {"flash_attention": 0}
+
+#: Head dims the kernel is instantiated for, and its largest GQA group.
+HEAD_DIMS = (16, 32, 64, 128, 256)
+MAX_GROUP = 64
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def _blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
+            bk: int) -> tuple[int, int]:
+    """Check the shapes; return the effective (bq, bk)."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q (B, Sq, H, hd) and k, v (B, Sk, K, hd) of one "
+                         f"shape; got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    b, sq, h, hd = q.shape
+    if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2]:
+        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
+                         f" (same batch and head dim, H a multiple of K)")
+    sk = k.shape[1]
+    if sq == 0 or sk == 0:
+        raise ValueError("empty query or key sequence")
+    bq, bk = min(bq, sq), min(bk, sk)
+    if sq % bq or sk % bk:
+        raise ValueError(f"flash attention needs sq % bq == 0 and sk % bk "
+                         f"== 0; got sq={sq}, bq={bq}, sk={sk}, bk={bk}")
+    return bq, bk
+
+
+def flash_attention_local_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True,
+                                bq: int = 512, bk: int = 512) -> torch.Tensor:
+    """The TPU kernel's tile loop in f32 tensor ops. Shapes as the kernel."""
+    bq, bk = _blocks(q, k, v, bq, bk)
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = hd ** -0.5
+    dev = q.device
+    # layout: (B, K, Sq, g, hd) for q; (B, K, Sk, hd) for k/v
+    qr = (q.to(torch.float32) * scale).reshape(b, sq, kh, g, hd).permute(
+        0, 2, 1, 3, 4)
+    kr = k.to(torch.float32).permute(0, 2, 1, 3)
+    vr = v.to(torch.float32).permute(0, 2, 1, 3)
+    out = torch.empty((b, kh, sq, g, hd), dtype=torch.float32, device=dev)
+    for qi in range(sq // bq):
+        qb = qr[:, :, qi * bq:(qi + 1) * bq]
+        q_pos = qi * bq + torch.arange(bq, device=dev)
+        m = torch.full((b, kh, bq, g), NEG_INF, device=dev)
+        lsum = torch.zeros((b, kh, bq, g), device=dev)
+        acc = torch.zeros((b, kh, bq, g, hd), device=dev)
+        for j in range(sk // bk):
+            if causal and j * bk > qi * bq + bq - 1:
+                continue
+            kb = kr[:, :, j * bk:(j + 1) * bk]
+            vb = vr[:, :, j * bk:(j + 1) * bk]
+            s = torch.einsum("bkqgd,bksd->bkqgs", qb, kb)
+            if causal:
+                k_pos = j * bk + torch.arange(bk, device=dev)
+                mask = k_pos[None, :] <= q_pos[:, None]   # (bq, bk)
+                s = torch.where(mask[:, None, :], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            lsum = lsum * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkqgs,bksd->bkqgd", p, vb)
+            m = m_new
+        out[:, :, qi * bq:(qi + 1) * bq] = acc / torch.clamp(
+            lsum, min=1e-30)[..., None]
+    return out.to(q.dtype).permute(0, 2, 1, 3, 4).reshape(b, sq, h, hd)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    b, sq, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must be on one device")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the flash kernel takes float32 or bfloat16 q, k, v "
+                        f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"the flash kernel takes head dims {HEAD_DIMS}; "
+                         f"got {hd}")
+    if h // kh > MAX_GROUP:
+        raise ValueError(f"the flash kernel takes GQA groups of at most "
+                         f"{MAX_GROUP} heads; got {h // kh}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("the flash kernel takes contiguous q, k, v")
+    from repro_torch.kernels.build import load
+    out = torch.empty_like(q)
+    err = load("flash_attention").repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _DTYPE_CODE[q.dtype], b, sq, sk, h, kh, hd, int(causal), hd ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: "
+                           f"cudaError_t {err}")
+    LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, bq: int = 512,
+                          bk: int = 512) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd); H = K*g. Returns (B,Sq,H,hd).
+
+    Single-device kernel (``ops.flash_attention`` is the public entry).
+    """
+    _blocks(q, k, v, bq, bk)
+    if q.device.type == "cpu":
+        return flash_attention_local_plain(q, k, v, causal=causal, bq=bq,
+                                           bk=bk)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on CUDA or CPU tensors; got "
+                         f"{q.device}")
+    return _launch(q, k, v, causal)

@@ -1,0 +1,78 @@
+"""Norms, MLP, embedding (twin of ``repro.layers.basic``).
+
+Each function takes ``p``, the module that holds its parameters, where
+the reference takes a parameter dict; the modules' ``forward`` calls the
+function. Projections stay ``torch.matmul``, as the reference leaves
+them to XLA.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.base import ModelConfig, ParamInit, Params
+
+
+class RMSNorm(Params):
+    def __init__(self, init: ParamInit, dim: int):
+        super().__init__()
+        self.scale = init.ones((dim,))
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return rms_norm(self, x, eps)
+
+
+def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p.scale.to(torch.float32)).to(x.dtype)
+
+
+class SwiGLU(Params):
+    def __init__(self, init: ParamInit, d: int, f: int,
+                 d_out: int | None = None):
+        super().__init__()
+        self.gate = init.normal((d, f))
+        self.up = init.normal((d, f))
+        self.down = init.normal((f, d_out or d))
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        return swiglu(self, x, cfg)
+
+
+def swiglu(p: SwiGLU, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    dt = cfg.dtype
+    g = x @ p.w("gate", dt)
+    u = x @ p.w("up", dt)
+    h = F.silu(g.to(torch.float32)).to(dt) * u
+    return h @ p.w("down", dt)
+
+
+class Embedding(Params):
+    """The token table (padded vocab) and, when untied, the LM head."""
+
+    def __init__(self, init: ParamInit, cfg: ModelConfig):
+        super().__init__()
+        v, d = cfg.padded_vocab, cfg.d_model
+        self.table = init.normal((v, d), scale=0.02)
+        if not cfg.tie_embeddings:
+            self.head = init.normal((d, v))
+
+
+def embed(p: Embedding, tokens: torch.Tensor,
+          cfg: ModelConfig) -> torch.Tensor:
+    return p.w("table", cfg.dtype)[tokens]
+
+
+def head_weight(p: Embedding, cfg: ModelConfig) -> torch.Tensor:
+    """The (d, V) head in the compute dtype; the tied head is the table's
+    transpose."""
+    if cfg.tie_embeddings:
+        return p.w("table", cfg.dtype).T
+    return p.w("head", cfg.dtype)
+
+
+def unembed(p: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits in f32 over the padded vocab (softmax stability)."""
+    return (x @ head_weight(p, cfg)).to(torch.float32)

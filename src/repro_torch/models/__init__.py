@@ -1,0 +1,1 @@
+"""Models of the port (twin of ``repro.models``): the dense decoder LM."""

@@ -1,11 +1,15 @@
-"""Device time of a CUDA call, from CUDA events.
+"""Device time of a CUDA call, from CUDA events or the profiler.
 
 :func:`device_ms` queues ``inner`` calls behind a spin kernel
 (``torch.cuda._sleep``) so the host has enqueued them all before the
 start event fires: the events then bracket device work only, not Python
 launch overhead. It returns the median over ``reps`` of the per-call
-time, in milliseconds. CUDA only: a CPU time is never reported under
-this name.
+time, in milliseconds. That holds while the host can enqueue the calls
+faster than the spin lasts: a call of thousands of small kernels fills
+the launch queue, the host then waits on the device, and its gaps are
+timed too. :func:`kernel_ms` sums instead the time of every kernel a call
+launches, from ``torch.profiler``. CUDA only: a CPU time is never
+reported under these names.
 """
 from __future__ import annotations
 
@@ -35,3 +39,23 @@ def device_ms(fn, *, reps: int = 7, inner: int = 10) -> float:
         end.synchronize()
         samples.append(start.elapsed_time(end) / inner)
     return statistics.median(samples)
+
+
+def kernel_ms(fn) -> tuple[float, int]:
+    """Device milliseconds summed over the kernels one ``fn()`` launches,
+    and their number, from ``torch.profiler``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("kernel_ms times CUDA work and needs a card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in kernels)
+    if total_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return total_us / 1e3, sum(e.count for e in kernels)

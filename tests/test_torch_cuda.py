@@ -97,3 +97,73 @@ def test_bad_inputs_raise(cuda):
         TE.stencil_rowchunk(u, spec)
     with pytest.raises(TE.PlanError, match="2-D tile plan"):
         TE.stencil_rowchunk(u.contiguous(), spec, device="cpu_ref")
+
+
+# ------------------------- K8 flash attention -------------------------
+
+FLASH_SHAPES = [(2, 128, 4, 2, 32, True), (1, 256, 8, 8, 16, True),
+                (2, 128, 4, 1, 32, False), (1, 64, 2, 2, 64, True),
+                (1, 192, 6, 2, 128, True), (2, 96, 3, 3, 256, True),
+                (1, 128, 12, 4, 64, True)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _qkv(b, s, h, kh, hd, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype=dtype, device=dev)
+            for shape in ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd))]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,s,h,kh,hd,causal", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
+    """Covers GQA groups 1-4, a group of 3 (a partial row block), hd 16 to
+    256, and a length that is not a multiple of the 64-key tile."""
+    from repro_torch.kernels import flash_attention as TF
+    q, k, v = _qkv(b, s, h, kh, hd, dtype, cuda)
+    before = TF.LAUNCHES["flash_attention"]
+    got = TF.flash_attention_local(q, k, v, causal=causal, bq=s, bk=s)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES["flash_attention"] == before + 1
+    want = TF.flash_attention_local_plain(q, k, v, causal=causal)
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as TF
+    q, k, v = _qkv(1, 128, 4, 2, 48, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        TF.flash_attention_local(q, k, v)
+    q, k, v = _qkv(1, 128, 4, 2, 32, torch.float16, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        TF.flash_attention_local(q, k, v)
+    q, k, v = _qkv(1, 128, 4, 2, 32, torch.float32, cuda)
+    strided = torch.cat([q, q], dim=-1)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        TF.flash_attention_local(strided, k, v)
+    with pytest.raises(ValueError, match="sq % bq"):
+        TF.flash_attention_local(q, k, v, bq=48)
+
+
+def test_smoke_lm_serves_through_the_flash_kernel(cuda):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen2.5-3b"),
+                              attn_chunk=16, attn_impl="flash")
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, 512, 64, dtype=np.int32),
+                    max_new_tokens=4) for _ in range(2)]
+    TF.reset_launch_counts()
+    done = ServeEngine(model, batch_size=2, max_len=72).generate(reqs)
+    assert TF.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert all(len(r.generated) == 4 for r in done)

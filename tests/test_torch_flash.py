@@ -1,0 +1,81 @@
+"""K8 on the CPU: the port's plain flash attention against the JAX kernel.
+
+The JAX side runs ``flash_attention_local`` in interpret mode; the port's
+wrapper runs its plain version on CPU tensors. Inputs are made once with
+numpy and handed to both. Tolerances are the JAX package's own
+(``tests/test_kernels_flash.py``): f32 2e-5, bf16 3e-2.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_local as jax_flash
+from repro_torch.kernels import flash_attention as TF
+from repro_torch.kernels import ops as TOPS
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+SHAPES = [(2, 128, 4, 2, 32, True), (1, 256, 8, 8, 16, True),
+          (2, 128, 4, 1, 32, False), (1, 64, 2, 2, 64, True)]
+
+
+def _inputs(b, s, h, kh, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, hd), dtype=np.float32),
+            rng.standard_normal((b, s, kh, hd), dtype=np.float32),
+            rng.standard_normal((b, s, kh, hd), dtype=np.float32))
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(dtype)
+
+
+@pytest.mark.parametrize("dname", list(DTYPES))
+@pytest.mark.parametrize("b,s,h,kh,hd,causal", SHAPES)
+def test_plain_matches_jax_kernel(b, s, h, kh, hd, causal, dname):
+    jdt, tdt = DTYPES[dname]
+    qkv = _inputs(b, s, h, kh, hd)
+    want = jax_flash(*(jnp.asarray(a, jdt) for a in qkv), causal=causal,
+                     bq=64, bk=64, interpret=True)
+    before = TF.LAUNCHES["flash_attention"]
+    got = TF.flash_attention_local(*(_torch(a, tdt) for a in qkv),
+                                   causal=causal, bq=64, bk=64)
+    assert TF.LAUNCHES["flash_attention"] == before  # plain: no launch
+    assert got.dtype == tdt and got.shape == (b, s, h, hd)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dname], atol=TOL[dname])
+
+
+def test_block_shape_independence():
+    qkv = [_torch(a, torch.float32) for a in _inputs(1, 128, 4, 2, 32, 1)]
+    a = TF.flash_attention_local(*qkv, bq=32, bk=64)
+    c = TF.flash_attention_local(*qkv, bq=128, bk=16)
+    np.testing.assert_allclose(a.numpy(), c.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_ops_wrapper_is_the_local_kernel_and_default_blocks():
+    qkv = [_torch(a, torch.float32) for a in _inputs(2, 128, 4, 2, 32, 2)]
+    want = jax_flash(*(jnp.asarray(t.numpy()) for t in qkv), causal=True,
+                     interpret=True)
+    got = TOPS.flash_attention(*qkv, causal=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("bq,bk,s", [(48, 64, 128), (64, 48, 128),
+                                     (512, 512, 600)])
+def test_indivisible_blocks_raise(bq, bk, s):
+    qkv = [_torch(a, torch.float32) for a in _inputs(1, s, 2, 1, 16)]
+    with pytest.raises(ValueError, match="sq % bq"):
+        TF.flash_attention_local(*qkv, bq=bq, bk=bk)
+
+
+def test_bad_shapes_raise():
+    q, k, v = (_torch(a, torch.float32) for a in _inputs(1, 64, 3, 2, 16))
+    with pytest.raises(ValueError, match="multiple of K"):
+        TF.flash_attention_local(q, k, v)
+    with pytest.raises(ValueError, match="one shape"):
+        TF.flash_attention_local(q[:, :, :2], k, v[:, :32])
