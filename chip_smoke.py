@@ -40,10 +40,29 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (the JAX package's own bound); both are also compared, as a
    diagnostic, with the same prefill in f32 compute. Prefill ms and
    decode ms a step (wall, and the kernels' device time from
-   ``torch.profiler``: the device's busy share), tok/s and peak memory
-   are printed;
-8. one JSON line listing the kernels, then the card's name and power
-   limit, then the result line.
+   ``torch.profiler``: the device's busy share), prefill's kernels with
+   the most device time, tok/s and peak memory are printed;
+8. K7 (depthwise causal conv) against its plain PyTorch version on the
+   card, bit for bit, at the JAX package's test shapes and at the serving
+   shape B=4, L=2048, D=5376, K=4, in f32 and bf16, with and without a
+   bias; at the serving shape the kernel, its plain version and a
+   depthwise ``torch.nn.functional.conv1d`` (a yardstick only, TF32 off)
+   are timed beside the bound;
+9. SSM serving, the third main path: ``mamba2-2.7b`` at full width and
+   depth (64 layers, d 2560, 80 SSD heads of 64, state 128) with
+   ``ssm_conv_impl="pallas"``, random weights from a seeded generator,
+   ``ServeEngine(batch_size=4)`` serving 4 requests of 2048-token prompts
+   and 32 new greedy tokens. Every request must get 32 tokens within the
+   padded vocab, K7 must launch 64 times (once a layer in the one prefill
+   wave) and no other kernel of the port at all, the prefill logits must
+   equal those of the same weights through ``ssm_conv_impl="jnp"`` (the
+   plain conv on the card) bit for bit, and a second greedy run must give
+   the same tokens. The gap to the same prefill in f32 compute, prefill
+   and decode times (wall, and kernel time from ``torch.profiler``),
+   prefill's kernels with the most device time, tok/s and peak memory are
+   printed;
+10. one JSON line listing the kernels, then the card's name and power
+    limit, then the result line.
 
 It imports nothing of JAX and nothing of the ``repro`` package, and exits
 non-zero without a card or outside a checkout of the repository.
@@ -51,6 +70,7 @@ non-zero without a card or outside a checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -72,10 +92,12 @@ from repro_torch.core.stencil import (StencilSpec, apply_stencil,  # noqa: E402
                                       jacobi_2d_5pt, laplace_2d_9pt,
                                       make_laplace_problem)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import conv1d as conv  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
-from repro_torch.obs.timing import device_ms, kernel_ms  # noqa: E402
+from repro_torch.obs.timing import (device_ms, kernel_ms,  # noqa: E402
+                                    top_kernels)
 
 NY, NX, ITERS, T = 1024, 9216, 1003, 8
 RADIUS2 = StencilSpec(offsets=((-2, 0), (-1, 0), (0, 0), (0, -2), (0, 1)),
@@ -98,6 +120,13 @@ FLASH_SHAPES = [(2, 128, 4, 2, 32, True, 64), (1, 256, 8, 8, 16, True, 64),
                 (2, 128, 4, 1, 32, False, 64), (1, 64, 2, 2, 64, True, 64),
                 (4, 2048, 16, 2, 128, True, 512)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+CONV = ("K7", "src/repro_torch/csrc/conv1d.cu",
+        "src/repro/kernels/conv1d.py:52")
+# (B, L, D, K, bl): the shapes of tests/test_kernels_conv1d.py (bl=32
+# there), then the serving prefill's (conv_dim 5376 of mamba2-2.7b).
+CONV_SHAPES = [(1, 64, 128, 4, 32), (2, 128, 256, 4, 32),
+               (3, 96, 128, 3, 32), (1, 32, 384, 2, 32),
+               (4, 2048, 5376, 4, 512)]
 PROMPT, NEW, WAVE = 2048, 32, 4
 # (memory bytes/s, f32 FLOP/s outside the tensor cores), data-sheet peaks.
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
@@ -452,6 +481,157 @@ def phase_serve(smi: str, stats) -> None:
           f"in {prefill_n} kernels (busy {prefill_dev / prefill:.1%} of its "
           f"wall), decode step {decode_dev:.3f} ms in {decode_n} kernels "
           f"(busy {decode_dev / decode:.1%} of its wall)")
+    print("prefill's kernels with the most device time:")
+    for name, ms, n in top_kernels(lambda: eng._prefill(toks)):
+        print(f"  {ms:10.3f} ms {n:5d}x  {name[:100]}")
+    t0 = time.perf_counter()
+    again = eng.generate(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    new = sum(len(r.generated) for r in again)
+    check([r.generated for r in again] == [r.generated for r in done],
+          "a second greedy run must give the same tokens")
+    print(f"prefill_ms={prefill:.3f} (wall, {WAVE}x{PROMPT} tokens) "
+          f"decode_ms_per_step={decode:.3f} (wall, {WAVE} tokens a step) "
+          f"generate: first run {first:.3f}s (includes the one-time bf16 "
+          f"weight casts), second {wall:.3f}s = {new / wall:.1f} tok/s "
+          f"({new} new tokens); peak memory {peak:.2f} GiB; on {smi}")
+
+
+def conv_bound_ms(x, w, b, peaks) -> tuple[float, str]:
+    """Least time for the conv: x, w, b read once and out written once,
+    against 2K-1 f32 operations an output (one more with a bias)."""
+    bw, flops = peaks
+    nbytes = (2 * x.numel() + w.numel()
+              + (0 if b is None else b.numel())) * x.element_size()
+    ops = (2 * w.shape[0] - 1 + (b is not None)) * x.numel()
+    b_ms, o_ms = nbytes / bw * 1e3, ops / flops * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def phase_conv(peaks, stats) -> None:
+    print("== phase 8: K7 depthwise causal conv vs its plain version, bit "
+          "for bit ==")
+    s = stats.setdefault("conv1d", {"max_abs_err": 0.0})
+    for bsz, length, d, k, bl in CONV_SHAPES:
+        for dname, dtype in DTYPES.items():
+            g = torch.Generator(device="cuda").manual_seed(length + d)
+            x = torch.randn((bsz, length, d), generator=g,
+                            device="cuda").to(dtype)
+            w = (torch.randn((k, d), generator=g, device="cuda")
+                 * 0.5).to(dtype)
+            b = torch.randn((d,), generator=g, device="cuda").to(dtype)
+            label = f"B={bsz} L={length} D={d} K={k}"
+            for bias in (None, b):  # the biased result stays in ``got``
+                got = conv.conv1d_depthwise_causal(x, w, bias, bl=bl)
+                want = conv.conv1d_depthwise_causal_plain(x, w, bias)
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                tag = "bias" if bias is not None else "no bias"
+                check(got.shape == x.shape and got.dtype == dtype
+                      and torch.equal(got, want),
+                      f"K7 {label} {dname} {tag}: max |err| {err}")
+                s["max_abs_err"] = max(s["max_abs_err"], err)
+                print(f"K7 {label:26s} {dname:8s} {tag:7s} bitwise")
+            if length != PROMPT:
+                continue
+            k_ms = device_ms(lambda: conv.conv1d_depthwise_causal(x, w, b,
+                                                                  bl=bl))
+            p_ms = device_ms(lambda: conv.conv1d_depthwise_causal_plain(
+                x, w, b), reps=5, inner=3)
+            # cuDNN's depthwise conv on a (B, D, L+K-1) layout made once.
+            xt = F.pad(x.transpose(1, 2), (k - 1, 0)).contiguous()
+            wt = w.t().contiguous()[:, None, :]
+            lib = F.conv1d(xt, wt, b, groups=d)
+            lib_err = float((lib.transpose(1, 2).float()
+                             - got.float()).abs().max())
+            lib_ms = device_ms(lambda: F.conv1d(xt, wt, b, groups=d))
+            b_ms, b_by = conv_bound_ms(x, w, b, peaks)
+            print(f"K7 {label:26s} {dname:8s} kernel_ms={k_ms:.6f} "
+                  f"plain_ms={p_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+                  f"conv1d_ms={lib_ms:.6f} (its max |diff| {lib_err:.3e})")
+            s[dname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_ssm(smi: str, stats) -> None:
+    cfg = dataclasses.replace(configs.get_config("mamba2-2.7b"),
+                              ssm_conv_impl="pallas")
+    print(f"== phase 9: SSM serving, {cfg.name} at full width ({cfg.n_layers}"
+          f" layers, d {cfg.d_model}, {cfg.ssm_heads} SSD heads of "
+          f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, vocab "
+          f"{cfg.vocab_size}), ssm_conv_impl=pallas, {WAVE} x {PROMPT} "
+          f"tokens + {NEW} new ==")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"random init of {sum(p.numel() for p in model.parameters())} "
+          f"params in {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab_size, size=(WAVE, PROMPT),
+                           dtype=np.int32)
+    eng = ServeEngine(model, batch_size=WAVE, max_len=PROMPT + NEW + 8)
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=NEW) for p in prompts]
+
+    torch.cuda.reset_peak_memory_stats()
+    engine.reset_launch_counts()
+    flash.reset_launch_counts()
+    conv.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = eng.generate(requests())
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = {**engine.LAUNCHES, **flash.LAUNCHES, **conv.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"launches: {counts}")
+    check(counts["conv1d"] == cfg.n_layers
+          and sum(counts.values()) == cfg.n_layers,
+          f"one prefill wave must launch K7 once a layer ({cfg.n_layers}) "
+          f"and no other kernel")
+    stats["conv1d"].update(launches=counts["conv1d"],
+                           path="ServeEngine.generate(mamba2-2.7b, pallas)")
+    for i, r in enumerate(done):
+        check(len(r.generated) == NEW
+              and all(0 <= t < cfg.padded_vocab for t in r.generated),
+              f"request {i}: {len(r.generated)} tokens, ids {r.generated}")
+    print(f"req0 -> {done[0].generated[:8]} ...; every request got {NEW} "
+          f"tokens in [0, {cfg.padded_vocab})")
+
+    toks = torch.from_numpy(prompts.astype(np.int64)).cuda()
+    got, cache = eng._prefill(toks)
+    plain = ServeEngine(model.with_config(dataclasses.replace(
+        cfg, ssm_conv_impl="jnp")), batch_size=WAVE, max_len=eng.max_len)
+    want, _ = plain._prefill(toks)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"prefill logits, K7 vs the plain conv: max |diff| {err:.6e}, "
+          f"logit range [{float(want.min()):.3f}, {float(want.max()):.3f}]")
+    check(bool(got.isfinite().all()) and torch.equal(got, want),
+          f"K7 prefill logits differ from the plain-conv route: {err}")
+    exact, _ = ServeEngine(model.with_config(dataclasses.replace(
+        cfg, dtype=torch.float32)), batch_size=WAVE,
+        max_len=eng.max_len)._prefill(toks)
+    print(f"the same prefill in f32 compute: max |diff| of bf16 "
+          f"{float((got - exact).abs().max()):.6e}")
+    del exact, want, plain
+
+    step = torch.from_numpy(np.asarray([[r.generated[0]] for r in done],
+                                       np.int64)).cuda()
+    prefill = wall_ms(lambda: eng._prefill(toks), reps=3)
+    decode = wall_ms(lambda: [eng._decode(cache, step) for _ in range(16)],
+                     reps=3) / 16
+    prefill_dev, prefill_n = kernel_ms(lambda: eng._prefill(toks))
+    decode_dev, decode_n = kernel_ms(lambda: eng._decode(cache, step))
+    print(f"device kernels (torch.profiler): prefill {prefill_dev:.3f} ms "
+          f"in {prefill_n} kernels (busy {prefill_dev / prefill:.1%} of its "
+          f"wall), decode step {decode_dev:.3f} ms in {decode_n} kernels "
+          f"(busy {decode_dev / decode:.1%} of its wall)")
+    print("prefill's kernels with the most device time:")
+    for name, ms, n in top_kernels(lambda: eng._prefill(toks)):
+        print(f"  {ms:10.3f} ms {n:5d}x  {name[:100]}")
     t0 = time.perf_counter()
     again = eng.generate(requests())
     torch.cuda.synchronize()
@@ -483,6 +663,10 @@ def main() -> None:
     phase_paths(stats)
     phase_flash(peaks, stats)
     phase_serve(smi, stats)
+    gc.collect()  # phase 7's model, so phase 9's peak memory is its own
+    torch.cuda.empty_cache()
+    phase_conv(peaks, stats)
+    phase_ssm(smi, stats)
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
         s = stats[policy]
@@ -500,6 +684,14 @@ def main() -> None:
         "max_abs_err": s["max_abs_err"], "dtype": "bfloat16",
         "shape": "B=4 S=2048 H=16 K=2 hd=128 causal", **s["bfloat16"],
         "float32": s["float32"]})
+    kid, source, replaces = CONV
+    s = stats["conv1d"]
+    kernels.append({
+        "name": f"{kid} conv1d_depthwise_causal", "route": "cuda",
+        "source": source, "replaces": replaces, "launches": s["launches"],
+        "path": s["path"], "max_abs_err": s["max_abs_err"],
+        "dtype": "bfloat16", "shape": "B=4 L=2048 D=5376 K=4 bias",
+        **s["bfloat16"], "float32": s["float32"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,12 @@ grid. Both cross as plain data, so the port never imports ``repro`` or
   to ``torch.bfloat16`` (exact again), so both packages start from the
   same bits.
 
-An LM's state is its parameter tree. :func:`lm_params_from_jax` takes the
-JAX ``DecoderLM``'s tree as numpy arrays (the stacked ``layers`` leaves
-with their leading ``n_layers`` axis, plus ``embedding`` and ``ln_f``)
-and loads it into a port ``DecoderLM``; both store f32, so the load is
-exact. :func:`load_params` loads one module from a nested dict.
+An LM's state is its parameter tree. :func:`lm_params_from_jax` takes a
+JAX LM's tree (``DecoderLM`` or ``MambaLM``) as numpy arrays (the stacked
+``layers`` leaves with their leading ``n_layers`` axis, plus
+``embedding`` and ``ln_f``) and loads it into the port's model for the
+config's family; both store f32, so the load is exact.
+:func:`load_params` loads one module from a nested dict.
 """
 from __future__ import annotations
 
@@ -87,9 +88,9 @@ def load_params(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
 
 
 def lm_params_from_jax(params: dict, cfg, *, device="cuda"):
-    """A port ``DecoderLM`` for ``cfg`` holding the JAX parameter tree
+    """The port's model for ``cfg`` holding the JAX parameter tree
     ``params`` (numpy leaves; ``layers`` leaves stacked over layers)."""
-    from repro_torch.models.lm import DecoderLM
+    from repro_torch.models.registry import build_model
     flat = dict(_flatten({k: v for k, v in params.items()
                           if k != "layers"}))
     for name, arr in _flatten(params["layers"]):
@@ -98,4 +99,4 @@ def lm_params_from_jax(params: dict, cfg, *, device="cuda"):
                              f"n_layers {cfg.n_layers}")
         for i in range(cfg.n_layers):
             flat[f"layers.{i}.{name}"] = arr[i]
-    return _load_flat(DecoderLM(cfg, device=require_device(device)), flat)
+    return _load_flat(build_model(cfg, device=require_device(device)), flat)

@@ -25,7 +25,7 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("stencil", "flash_attention")
+SOURCES = ("stencil", "flash_attention", "conv1d")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -117,6 +117,9 @@ SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F32,
                                   P],
+    },
+    "conv1d": {
+        "repro_conv1d": [P, P, P, P, I, I, I, I, I, I, I, P],
     },
 }
 

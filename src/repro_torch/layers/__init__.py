@@ -1,2 +1,2 @@
 """Layers of the port (twin of ``repro.layers``): norms, MLP, embedding,
-rotary embeddings and GQA attention."""
+rotary embeddings, GQA attention and the Mamba2 SSM block."""

@@ -1,1 +1,2 @@
-"""Models of the port (twin of ``repro.models``): the dense decoder LM."""
+"""Models of the port (twin of ``repro.models``): the dense decoder LM and
+mamba2."""

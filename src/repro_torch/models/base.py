@@ -9,9 +9,9 @@ JAX tree over name by name.
 :class:`ParamInit` applies the reference's init rule with an explicit
 ``torch.Generator``: ``normal`` is a standard normal times
 ``1/sqrt(shape[0])`` (or the given scale), ``zeros`` and ``ones`` are
-constant, and every parameter is stored in ``cfg.param_dtype``. The
-numbers differ from JAX's for the same seed (the generators differ); the
-shapes and scales do not.
+constant, ``const`` holds a given value, and every parameter is stored
+in ``cfg.param_dtype``. The numbers differ from JAX's for the same seed
+(the generators differ); the shapes and scales do not.
 
 Parameters are forward-only (``requires_grad=False``): the port serves
 and does not train yet. :meth:`Params.w` returns a parameter in the
@@ -21,6 +21,7 @@ version changes, so a load or an in-place edit is never served stale.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any
@@ -97,6 +98,10 @@ class ModelConfig:
     # "jnp" = the plain online-softmax chunked loop of tensor ops;
     # "flash" = the hand-written CUDA kernel (K8, forward-only: serving).
     attn_impl: str = "jnp"
+    # Mamba2's depthwise causal conv: "jnp" = plain tensor ops (the
+    # reference's default, read there with getattr); "pallas" = the
+    # hand-written CUDA kernel (K7).
+    ssm_conv_impl: str = "jnp"
 
     @property
     def hd(self) -> int:
@@ -154,6 +159,24 @@ class ParamInit:
 
     def ones(self, shape: tuple[int, ...]) -> nn.Parameter:
         return self._param(torch.ones(shape, device=self.device))
+
+    def const(self, value: torch.Tensor) -> nn.Parameter:
+        """A parameter holding ``value`` (the reference's ``const``)."""
+        if self.device.type == "meta":
+            return self._param(torch.empty(value.shape, device=self.device))
+        return self._param(value.to(self.device))
+
+
+def with_config(model: nn.Module, cfg: ModelConfig,
+                shape: tuple[str, ...]) -> nn.Module:
+    """``model``'s parameters under ``cfg``, which may change execution
+    knobs (``dtype``, ``attn_impl``, ...) but none of the ``shape`` fields."""
+    if any(getattr(cfg, f) != getattr(model.cfg, f) for f in shape):
+        raise ValueError("with_config changes execution knobs only, "
+                         "not parameter shapes")
+    twin = copy.copy(model)
+    twin.cfg = cfg
+    return twin
 
 
 class Params(nn.Module):

@@ -10,7 +10,6 @@ MLA (minicpm3), MoE (qwen3-moe) and the VLM backbone (internvl2) raise
 """
 from __future__ import annotations
 
-import copy
 from typing import Any, Dict, Optional
 
 import torch
@@ -18,7 +17,7 @@ from torch import nn
 
 from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, KVCache, attention, init_kv_cache
-from repro_torch.models.base import ModelConfig, ParamInit
+from repro_torch.models.base import ModelConfig, ParamInit, with_config
 
 
 class DecoderLayer(nn.Module):
@@ -76,14 +75,9 @@ class DecoderLM(nn.Module):
     def with_config(self, cfg: ModelConfig) -> "DecoderLM":
         """The same parameters run under other execution knobs
         (``attn_impl``, ``attn_chunk``, ``dtype``)."""
-        shape = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-                 "vocab_size", "head_dim", "qkv_bias", "tie_embeddings")
-        if any(getattr(cfg, f) != getattr(self.cfg, f) for f in shape):
-            raise ValueError("with_config changes execution knobs only, "
-                             "not parameter shapes")
-        twin = copy.copy(self)
-        twin.cfg = cfg
-        return twin
+        return with_config(self, cfg, (
+            "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+            "vocab_size", "head_dim", "qkv_bias", "tie_embeddings"))
 
     # ---------------------------- forward ----------------------------
 

@@ -1,7 +1,7 @@
 """Model factory + parameter accounting (twin of ``repro.models.registry``).
 
-The port builds the dense family only; :func:`count_params` counts any
-config the port builds, from its parameter shapes (a model made on the
+The port builds the dense and SSM families; :func:`count_params` counts
+any config the port builds, from its parameter shapes (a model made on the
 ``meta`` device holds shapes and no storage).
 """
 from __future__ import annotations
@@ -13,10 +13,13 @@ from repro_torch.models.base import ModelConfig
 
 def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: torch.Generator | None = None):
-    from repro_torch.models.lm import DecoderLM
     if cfg.family in ("dense", "moe", "vlm"):
+        from repro_torch.models.lm import DecoderLM
         return DecoderLM(cfg, device=device, generator=generator)
-    if cfg.family in ("ssm", "hybrid", "encoder"):
+    if cfg.family == "ssm":
+        from repro_torch.models.ssm_lm import MambaLM
+        return MambaLM(cfg, device=device, generator=generator)
+    if cfg.family in ("hybrid", "encoder"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
                                   f"(ROADMAP Queue 1)")
     raise ValueError(f"unknown family {cfg.family!r}")

@@ -8,7 +8,8 @@ time, in milliseconds. That holds while the host can enqueue the calls
 faster than the spin lasts: a call of thousands of small kernels fills
 the launch queue, the host then waits on the device, and its gaps are
 timed too. :func:`kernel_ms` sums instead the time of every kernel a call
-launches, from ``torch.profiler``. CUDA only: a CPU time is never
+launches, from ``torch.profiler``; :func:`top_kernels` lists the kernels
+that take the most of it. CUDA only: a CPU time is never
 reported under these names.
 """
 from __future__ import annotations
@@ -41,11 +42,10 @@ def device_ms(fn, *, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(samples)
 
 
-def kernel_ms(fn) -> tuple[float, int]:
-    """Device milliseconds summed over the kernels one ``fn()`` launches,
-    and their number, from ``torch.profiler``."""
+def _kernels(fn) -> list:
+    """The profiler's per-kernel averages of one ``fn()``."""
     if not torch.cuda.is_available():
-        raise RuntimeError("kernel_ms times CUDA work and needs a card")
+        raise RuntimeError("kernel timing needs a card")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -55,7 +55,22 @@ def kernel_ms(fn) -> tuple[float, int]:
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
-    total_us = sum(e.self_device_time_total for e in kernels)
-    if total_us <= 0:
+    if sum(e.self_device_time_total for e in kernels) <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return total_us / 1e3, sum(e.count for e in kernels)
+    return kernels
+
+
+def kernel_ms(fn) -> tuple[float, int]:
+    """Device milliseconds summed over the kernels one ``fn()`` launches,
+    and their number, from ``torch.profiler``."""
+    kernels = _kernels(fn)
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
+def top_kernels(fn, n: int = 8) -> list[tuple[str, float, int]]:
+    """The ``n`` kernels of one ``fn()`` with the most device time:
+    (name, milliseconds summed over its launches, launches)."""
+    kernels = sorted(_kernels(fn), key=lambda e: -e.self_device_time_total)
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in kernels[:n]]

@@ -2,11 +2,12 @@
 
 ``ServeEngine`` serves requests in waves of ``batch_size``: each wave's
 prompts are left-padded with token 0 to the longest, prefilled into a
-fresh KV cache (logits of the last position only), then decoded one
-token per step for every slot until each request has ``max_new_tokens``
-or has emitted ``eos_id``. The KV cache is updated in place, which stands
-in for the reference's buffer donation. Pads are attended like any token
-(the reference has no pad mask either).
+fresh cache (a KV cache, or an SSM's state and conv tail; logits of the
+last position only), then decoded one token per step for every slot
+until each request has ``max_new_tokens`` or has emitted ``eos_id``. The
+model updates the cache in place, which stands in for the reference's
+buffer donation. Pads are seen like any token (the reference has no pad
+mask either).
 """
 from __future__ import annotations
 
@@ -29,7 +30,9 @@ class Request:
 
 
 class ServeEngine:
-    """Waves of ``batch_size`` requests through ``model`` (a ``DecoderLM``).
+    """Waves of ``batch_size`` requests through ``model`` (a ``DecoderLM``
+    or a ``MambaLM``: any model with ``init_cache``, ``forward`` and
+    ``device``).
 
     Sampling draws from ``generator`` (on the model's device); by default
     one seeded with ``rng_seed``.

@@ -167,3 +167,84 @@ def test_smoke_lm_serves_through_the_flash_kernel(cuda):
     done = ServeEngine(model, batch_size=2, max_len=72).generate(reqs)
     assert TF.LAUNCHES["flash_attention"] == cfg.n_layers
     assert all(len(r.generated) == 4 for r in done)
+
+
+# ----------------------- K7 depthwise causal conv -----------------------
+
+# (B, L, D, K, bl): the JAX package's test shapes, a D that takes the
+# scalar path (not a multiple of 8), a D with a tail tile, K = 1 and 8,
+# and a length whose chunk is not a multiple of the 8 time segments.
+CONV_SHAPES = [(1, 64, 128, 4, 32), (2, 128, 256, 4, 32),
+               (3, 96, 128, 3, 32), (1, 32, 384, 2, 32),
+               (2, 50, 100, 4, 512), (1, 40, 5376, 4, 512),
+               (2, 33, 72, 1, 11), (1, 70, 264, 8, 7)]
+
+
+def _conv_inputs(b, l, d, k, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [(torch.randn(shape, generator=g) * s).to(dtype=dtype, device=dev)
+            for shape, s in (((b, l, d), 1.0), ((k, d), 0.5), ((d,), 1.0))]
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,l,d,k,bl", CONV_SHAPES)
+def test_conv1d_kernel_equals_plain_bitwise(cuda, b, l, d, k, bl, dtype,
+                                            bias):
+    from repro_torch.kernels import conv1d as TK
+    x, w, bb = _conv_inputs(b, l, d, k, dtype, cuda)
+    bb = bb if bias else None
+    before = TK.LAUNCHES["conv1d"]
+    got = TK.conv1d_depthwise_causal(x, w, bb, bl=bl)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["conv1d"] == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, TK.conv1d_depthwise_causal_plain(x, w, bb))
+
+
+def test_conv1d_kernel_unaligned_view_and_rejections(cuda):
+    """A view starting 4 bytes into its storage takes the scalar path."""
+    from repro_torch.kernels import conv1d as TK
+    x, w, bb = _conv_inputs(2, 64, 129, 4, torch.float32, cuda)
+    flat = x.reshape(-1)[1:1 + 2 * 64 * 128].view(2, 64, 128)
+    assert flat.data_ptr() % 16 == 4
+    got = TK.conv1d_depthwise_causal(flat, w[:, :128].contiguous(),
+                                     bb[:128].contiguous())
+    want = TK.conv1d_depthwise_causal_plain(flat, w[:, :128], bb[:128])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="contiguous"):
+        TK.conv1d_depthwise_causal(x[..., :128], w[:, :128].contiguous())
+    with pytest.raises(ValueError, match="one device"):
+        TK.conv1d_depthwise_causal(x, w.cpu())
+
+
+def test_smoke_mamba_through_the_conv_kernel(cuda):
+    """A mamba2 smoke forward through K7 equals the plain-conv route bit
+    for bit on the card, and serving launches K7 once a layer a wave."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import conv1d as TK
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(configs.get_smoke_config("mamba2-2.7b"),
+                              ssm_conv_impl="pallas")
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    plain = model.with_config(dataclasses.replace(cfg, ssm_conv_impl="jnp"))
+    toks = torch.arange(64, device=cuda)[None].repeat(2, 1) % cfg.vocab_size
+    TK.reset_launch_counts()
+    got, _, _ = model.forward({"tokens": toks})
+    assert TK.LAUNCHES["conv1d"] == cfg.n_layers
+    want, _, _ = plain.forward({"tokens": toks})
+    assert torch.equal(got, want)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, 512, 32, dtype=np.int32),
+                    max_new_tokens=4) for _ in range(2)]
+    TK.reset_launch_counts()
+    done = ServeEngine(model, batch_size=2, max_len=40).generate(reqs)
+    assert TK.LAUNCHES["conv1d"] == cfg.n_layers
+    assert all(len(r.generated) == 4 for r in done)
