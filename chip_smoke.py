@@ -61,7 +61,17 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    and decode times (wall, and kernel time from ``torch.profiler``),
    prefill's kernels with the most device time, tok/s and peak memory are
    printed;
-10. one JSON line listing the kernels, then the card's name and power
+10. the memory-access study: K5a (``stream_copy``), K5b
+    (``stream_copy_rowdma``), K5c (``stream_replicated``), K6a
+    (``dma_only``) and K6b (``compute_only``) against their plain
+    versions, bit for bit, at the JAX test shapes (odd blocks, widths 258
+    and 1026, a ragged last block) and at the table shapes, in every dtype
+    their tables use plus bf16; each timed at its main table shape beside
+    its bound and, for the copies, ``Tensor.copy_`` (a yardstick only).
+    Then ``launch.access`` runs Tables II–VI on the card at the paper's
+    sizes with the launch counters zeroed just before: every measured row
+    must read ``us_per_call > 0`` and all five kernels must have launched;
+11. one JSON line listing the kernels, then the card's name and power
     limit, then the result line.
 
 It imports nothing of JAX and nothing of the ``repro`` package, and exits
@@ -92,8 +102,11 @@ from repro_torch.core.stencil import (StencilSpec, apply_stencil,  # noqa: E402
                                       jacobi_2d_5pt, laplace_2d_9pt,
                                       make_laplace_problem)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import components  # noqa: E402
 from repro_torch.kernels import conv1d as conv  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import stream  # noqa: E402
+from repro_torch.launch import access  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.obs.timing import (device_ms, kernel_ms,  # noqa: E402
@@ -128,6 +141,19 @@ CONV_SHAPES = [(1, 64, 128, 4, 32), (2, 128, 256, 4, 32),
                (3, 96, 128, 3, 32), (1, 32, 384, 2, 32),
                (4, 2048, 5376, 4, 512)]
 PROMPT, NEW, WAVE = 2048, 32, 4
+STREAM_SOURCE = "src/repro_torch/csrc/stream.cu"
+STREAM = {  # wrapper -> (id, TPU kernel it replaces, its main table shape)
+    "stream_copy": ("K5a", "src/repro/kernels/stream.py:36",
+                    "4096x4096 int32 bm=256 bn=4096 (Table III, 16 KB rows)"),
+    "stream_copy_rowdma": ("K5b", "src/repro/kernels/stream.py:70",
+                           "4096x4096 int32 bm=64 sync=False (Table III)"),
+    "stream_replicated": ("K5c", "src/repro/kernels/stream.py:100",
+                          "4096x4096 float32 bm=128 factor=32 (Table V)"),
+    "dma_only": ("K6a", "benchmarks/table2_components.py:37",
+                 "1026x9218 bfloat16 bm=64 (Table II)"),
+    "compute_only": ("K6b", "benchmarks/table2_components.py:52",
+                     "1026x9218 bfloat16 bm=64 (Table II)"),
+}
 # (memory bytes/s, f32 FLOP/s outside the tensor cores), data-sheet peaks.
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
          "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
@@ -646,6 +672,130 @@ def phase_ssm(smi: str, stats) -> None:
           f"({new} new tokens); peak memory {peak:.2f} GiB; on {smi}")
 
 
+def stream_cases():
+    """(wrapper, shape, kwargs, dtypes): the JAX test-like shapes, then
+    the tables' shapes."""
+    ints, floats = (torch.int32, torch.bfloat16), (torch.float32,
+                                                    torch.bfloat16)
+    every = (torch.int32, torch.float32, torch.bfloat16)
+    side = access.SIDE
+    cases = [("stream_copy", (128, 256), {"bm": 16, "bn": 256}, every),
+             ("stream_copy", (96, 258), {"bm": 32, "bn": 129}, every),
+             ("stream_copy", (30, 45), {"bm": 3, "bn": 5}, every)]
+    cases += [("stream_copy", (side, side), {"bm": 256, "bn": bn}, ints)
+              for bn in access.COPY_BN]
+    cases += [("stream_copy", (side, side), {"bm": bm, "bn": bn}, ints)
+              for bm, bn in ((64, side), (256, 256), (1024, 64), (1024, 8))]
+    cases += [("stream_copy", (access.layout_rows(w), w),
+               {"bm": 128, "bn": w}, floats) for w, _ in access.WIDTHS]
+    for sync in (False, True):
+        cases += [("stream_copy_rowdma", (128, 256), {"bm": 16, "sync": sync},
+                   every),
+                  ("stream_copy_rowdma", (96, 40), {"bm": 32, "sync": sync},
+                   every),
+                  ("stream_copy_rowdma", (side, side),
+                   {"bm": 64, "sync": sync}, every)]
+    for factor in (1, 3, 7, 32):
+        cases += [("stream_replicated", (128, 256),
+                   {"bm": 16, "factor": factor}, every),
+                  ("stream_replicated", (96, 258),
+                   {"bm": 32, "factor": factor}, every)]
+    cases += [("stream_replicated", (side, side), {"bm": 128, "factor": f},
+               every if f in (1, 32) else (torch.float32,))
+              for f in access.FACTORS]
+    for op in ("dma_only", "compute_only"):
+        cases += [(op, (100, 130), {"bm": 16}, floats),
+                  (op, (514, 514), {"bm": 64}, floats),
+                  (op, (1026, 9218), {"bm": 64}, floats)]
+    return cases
+
+
+def stream_fn(name: str):
+    mod = components if name in components.LAUNCHES else stream
+    return getattr(mod, name), getattr(mod, f"{name}_plain")
+
+
+def phase_stream(peaks, stats) -> None:
+    print("== phase 10: the memory-access study, K5a-c and K6a-b vs their "
+          "plain versions, bit for bit, then launch.access on Tables II-VI "
+          "==")
+    bw, flops = peaks
+    for name in STREAM:
+        stats[name] = {"max_abs_err": 0.0}
+    for seed, (name, shape, kw, dtypes) in enumerate(stream_cases()):
+        fn, plain = stream_fn(name)
+        for dtype in dtypes:
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            x = (torch.randn(shape, generator=g, device="cuda")
+                 * 3000).to(dtype)
+            got, want = fn(x, **kw), plain(x, **kw)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            check(got.dtype == dtype and torch.equal(got, want),
+                  f"{name} {shape} {kw} {dtype}: max |err| {err}")
+            stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"], err)
+        print(f"{name:18s} {str(shape):14s} {str(kw):28s} "
+              f"{','.join(str(d)[6:] for d in dtypes)} bitwise")
+
+    side = access.SIDE
+    ramp = torch.arange(side * side, dtype=torch.int32,
+                        device="cuda").reshape(side, side)
+    grid = make_laplace_problem(NY, NX, dtype=torch.bfloat16)
+    mains = {"stream_copy": (ramp, {"bm": 256, "bn": side}),
+             "stream_copy_rowdma": (ramp, {"bm": 64, "sync": False}),
+             "stream_replicated": (ramp.float(), {"bm": 128, "factor": 32}),
+             "dma_only": (grid, {"bm": 64}),
+             "compute_only": (grid, {"bm": 64})}
+    for name, (x, kw) in mains.items():
+        fn, plain = stream_fn(name)
+        out = fn(x, **kw)
+        # each input byte the function needs read once, each output written
+        # once (dma_only needs only the interior it writes)
+        nbytes = ((2 if name == "dma_only" else 1) * out.numel()
+                  + (0 if name == "dma_only" else x.numel())) * x.element_size()
+        ops = {"stream_replicated": kw.get("factor", 0) * x.numel(),
+               "compute_only": 4 * x.numel()}.get(name, 0)
+        b_ms, o_ms = nbytes / bw * 1e3, ops / flops * 1e3
+        k_ms = device_ms(lambda: fn(x, **kw))
+        p_ms = device_ms(lambda: plain(x, **kw), reps=5, inner=3)
+        src = x[1:-1, 1:-1] if name == "dma_only" else x
+        lib_ms = (None if name in ("stream_replicated", "compute_only")
+                  else device_ms(lambda: out.copy_(src)))
+        s = stats[name]
+        s.update(ms=k_ms, plain_ms=p_ms, bound_ms=max(b_ms, o_ms),
+                 bound_by="bytes" if b_ms >= o_ms else "operations",
+                 library_ms=lib_ms)
+        extra = ""
+        if name == "stream_replicated":
+            # what the factor reads and the one write move, as the TPU does
+            s["traffic_ms"] = ((kw["factor"] + 1) * x.numel()
+                               * x.element_size() / bw * 1e3)
+            extra = f" factor_traffic_ms={s['traffic_ms']:.6f}"
+        print(f"{STREAM[name][0]} {name:18s} {STREAM[name][2]}: "
+              f"kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
+              f"bound_ms={s['bound_ms']:.6f} ({s['bound_by']}){extra} "
+              f"copy_ms={'null' if lib_ms is None else f'{lib_ms:.6f}'}")
+    del ramp, grid, mains
+
+    stream.reset_launch_counts()
+    components.reset_launch_counts()
+    rows = {t: access.table_rows(t, "cuda") for t in sorted(access.TABLES)}
+    torch.cuda.synchronize()
+    counts = {**stream.LAUNCHES, **components.LAUNCHES}
+    print(f"launch.access launches: {counts}")
+    print("name,us_per_call,derived")
+    for t, lines in rows.items():
+        print(f"# {access.TITLES[t]}")
+        for line in lines:
+            print(line)
+            name, us, _ = line.split(",")
+            check(name.startswith("paper_") or float(us) > 0,
+                  f"table {t} row {name} measured no time")
+    for name, n in counts.items():
+        check(n > 0, f"{name} was not launched by launch.access")
+        stats[name].update(launches=n, path="launch.access tables II-VI")
+
+
 def main() -> None:
     smi, peaks = card()
     print(f"== phase 1: card: {smi} ==")
@@ -667,6 +817,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_conv(peaks, stats)
     phase_ssm(smi, stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_stream(peaks, stats)
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
         s = stats[policy]
@@ -692,6 +845,17 @@ def main() -> None:
         "path": s["path"], "max_abs_err": s["max_abs_err"],
         "dtype": "bfloat16", "shape": "B=4 L=2048 D=5376 K=4 bias",
         **s["bfloat16"], "float32": s["float32"]})
+    for name, (kid, replaces, shape) in STREAM.items():
+        s = stats[name]
+        kernels.append({
+            "name": f"{kid} {name}", "route": "cuda",
+            "source": STREAM_SOURCE, "replaces": replaces,
+            "launches": s["launches"], "path": s["path"],
+            "max_abs_err": s["max_abs_err"], "shape": shape,
+            **{k: s[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+            **({"traffic_ms": s["traffic_ms"]} if "traffic_ms" in s
+               else {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

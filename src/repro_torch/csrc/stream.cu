@@ -1,0 +1,545 @@
+// Hand-written Hopper (sm_90a) kernels for the paper's memory-access study
+// (§V, Tables III-VI) and its Table II component ablation.
+//
+// Each kernel replaces one Pallas kernel of the JAX package and computes
+// what its plain PyTorch version (src/repro_torch/kernels/stream.py,
+// src/repro_torch/kernels/components.py) computes, bit for bit:
+//
+//   K5a stream_copy        src/repro/kernels/stream.py (_copy_kernel)
+//   K5b stream_copy_rowdma src/repro/kernels/stream.py (_rowdma_kernel)
+//   K5c stream_replicated  src/repro/kernels/stream.py (_replicated_kernel)
+//   K6a dma_only           benchmarks/table2_components.py (_dma_only_kernel)
+//   K6b compute_only       benchmarks/table2_components.py
+//                          (_compute_only_kernel)
+//
+// Arrays are (h, w), row-major and contiguous. The copies (K5a, K5b, K6a)
+// move raw elements of 2 or 4 bytes (bf16, f32, int32); K5c and K6b widen to
+// f32, add with __fadd_rn (and K6b multiplies with __fmul_rn), so nothing is
+// contracted or reassociated whatever -fmad says, and round once to the
+// dtype: round-to-nearest-even for bf16, truncation toward zero for int32.
+//
+// Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
+// cores): every kernel reads its input once and writes its output once, at
+// most a handful of f32 operations an element, so each is bound by bytes.
+// K5c re-reads its input `factor` times by design; on this card the second
+// and later reads of a tile are served by the 50 MB L2, where the TPU
+// re-DMAs from HBM.
+//
+// C interface: one extern "C" launcher per kernel, returning cudaError_t
+// (the launch's cudaGetLastError()). Built by repro_torch/kernels/build.py
+// with nvcc -gencode arch=compute_90a,code=sm_90a and loaded with ctypes.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define THREADS 256
+#define MAX_SMEM (227 * 1024)  // dynamic shared memory a block may opt into
+
+// Element types as raw bits, and their f32 value where a kernel does math.
+struct F32 {
+  using bits = uint32_t;
+  static __device__ __forceinline__ float widen(uint32_t b) {
+    return __uint_as_float(b);
+  }
+  static __device__ __forceinline__ uint32_t narrow(float v) {
+    return __float_as_uint(v);
+  }
+};
+struct BF16 {
+  using bits = uint16_t;
+  static __device__ __forceinline__ float widen(uint16_t b) {
+    return __bfloat162float(__ushort_as_bfloat16(b));
+  }
+  static __device__ __forceinline__ uint16_t narrow(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+struct I32 {
+  using bits = uint32_t;
+  static __device__ __forceinline__ float widen(uint32_t b) {
+    return __int2float_rn(static_cast<int>(b));
+  }
+  static __device__ __forceinline__ uint32_t narrow(float v) {
+    return static_cast<uint32_t>(__float2int_rz(v));
+  }
+};
+
+// V elements of B as one 16-byte access (V * sizeof(B) == 16).
+template <typename B, int V>
+union Pack {
+  uint4 raw;
+  B e[V];
+};
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// ---------------------------------------------------------------------------
+// K5a: blocked identity copy. One block per (bm, bn) tile; each row's bn
+// elements are read and written as one contiguous span, so bn keeps its
+// meaning as the transaction width (bn = 8 int32 is one 32-byte sector). A
+// group of g lanes (g a power of two <= 32, about the span's 16-byte units)
+// copies one row, so a warp covers consecutive elements of a row when bn is
+// wide and 32/g rows when it is narrow; the block loops over its rows. A
+// row takes 16-byte vectors where its start and bn * sizeof allow, else
+// elements (Table VI's widths 1026 and 514 put every other row start 8
+// bytes off 16). Each lane keeps four loads in flight before it stores.
+
+template <typename U>
+__device__ __forceinline__ void copy_units(const U* __restrict__ s,
+                                           U* __restrict__ d, int n, int lane,
+                                           int g) {
+  int k = lane;
+  for (; k + 3 * g < n; k += 4 * g) {
+    const U a = s[k], b = s[k + g], c = s[k + 2 * g], e = s[k + 3 * g];
+    d[k] = a;
+    d[k + g] = b;
+    d[k + 2 * g] = c;
+    d[k + 3 * g] = e;
+  }
+  for (; k < n; k += g) d[k] = s[k];
+}
+
+#define COPY_THREADS 512
+
+template <typename E>
+__global__ void __launch_bounds__(COPY_THREADS)
+    stream_copy_kernel(const E* __restrict__ x, E* __restrict__ out, int w,
+                       int bm, int bn, int tiles_w, int g) {
+  const int ti = blockIdx.x / tiles_w, tj = blockIdx.x % tiles_w;
+  const int grp = threadIdx.x / g, lane = threadIdx.x % g;
+  const int groups = blockDim.x / g;
+  const bool vec_bn = (bn * sizeof(E)) % 16 == 0;
+  for (int r = grp; r < bm; r += groups) {
+    const size_t off = static_cast<size_t>(ti * bm + r) * w +
+                       static_cast<size_t>(tj) * bn;
+    const E* s = x + off;
+    E* d = out + off;
+    if (vec_bn && aligned16(s) && aligned16(d)) {
+      copy_units(reinterpret_cast<const uint4*>(s),
+                 reinterpret_cast<uint4*>(d),
+                 static_cast<int>(bn * sizeof(E) / 16), lane, g);
+    } else {
+      copy_units(s, d, bn, lane, g);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5b: the copy issued as one asynchronous copy per row. One block per
+// bm-row block. Thread 0 moves each row global -> shared with one
+// cp.async.bulk completed on an mbarrier (the closest Hopper form of the
+// TPU's per-row DMA); once it has landed, the block writes it out and frees
+// its slot. Rows stage through a ring of `ring` row slots: sync = 1 issues
+// row r + 1 only after row r has landed and left (one row in flight, the
+// TPU's wait after each row); sync = 0 keeps `ring` rows in flight (the TPU
+// keeps all bm rows in flight: a 16 KiB row makes that impossible in 227 KiB
+// of shared memory). cp.async.bulk needs 16-byte aligned rows of a multiple
+// of 16 bytes; the wrapper refuses anything else.
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+// Thread 0: expect `bytes` on `bar`, then start the bulk copy that delivers
+// them.
+__device__ __forceinline__ void bulk_row(void* dst, const void* src,
+                                         uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+#define RING_BARS 128  // bytes reserved ahead of the slots for the barriers
+
+__global__ void __launch_bounds__(THREADS)
+    stream_rowdma_kernel(const unsigned char* __restrict__ x,
+                         unsigned char* __restrict__ out, uint32_t row_bytes,
+                         int bm, int ring, int sync) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  unsigned char* slots = smem + RING_BARS;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * bm;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ring; ++s) mbar_init(&bars[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int ahead = sync ? 1 : ring;
+  if (threadIdx.x == 0) {
+    for (int r = 0; r < ahead && r < bm; ++r) {
+      bulk_row(slots + static_cast<size_t>(r % ring) * row_bytes,
+               x + (row0 + r) * row_bytes, row_bytes, &bars[r % ring]);
+    }
+  }
+  const int units = row_bytes / 16;
+  for (int r = 0; r < bm; ++r) {
+    const int s = r % ring;
+    mbar_wait(&bars[s], (r / ring) & 1);
+    const uint4* src =
+        reinterpret_cast<const uint4*>(slots + static_cast<size_t>(s) *
+                                                   row_bytes);
+    uint4* dst = reinterpret_cast<uint4*>(out + (row0 + r) * row_bytes);
+    for (int k = threadIdx.x; k < units; k += blockDim.x) dst[k] = src[k];
+    __syncthreads();  // every thread has read slot s: it may be refilled
+    const int next = r + ahead;
+    if (threadIdx.x == 0 && next < bm) {
+      const int ns = next % ring;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bulk_row(slots + static_cast<size_t>(ns) * row_bytes,
+               x + (row0 + next) * row_bytes, row_bytes, &bars[ns]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5c: replicated reads. out = dtype(0 + x + x + ... + x), `factor` reads of
+// x summed in f32 in order with __fadd_rn and rounded once. A block owns a
+// tile of 32 rows x 32 units (a unit is one 16-byte vector, or one element
+// where w * sizeof or a pointer is not 16-byte aligned); each thread
+// accumulates 4 units of one column of units in registers, and the block
+// reads its whole tile `factor` times, each read a volatile load that the
+// compiler may neither merge nor drop. bm, the TPU's DMA block, does not
+// change the result and is only checked by the wrapper.
+
+#define REP_TX 32  // units along a row: one warp
+#define REP_TY 8   // thread rows
+#define REP_K 4    // rows each thread accumulates: a tile is 32 rows
+
+__device__ __forceinline__ uint4 ld_volatile(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.volatile.global.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ uint32_t ld_volatile(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.volatile.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+__device__ __forceinline__ uint16_t ld_volatile(const uint16_t* p) {
+  unsigned short v;
+  asm volatile("ld.volatile.global.u16 %0, [%1];\n"
+               : "=h"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// V elements of T at p, widened to f32 (one 16-byte volatile load when
+// V > 1).
+template <typename T, int V>
+__device__ __forceinline__ void load_volatile(const typename T::bits* p,
+                                              float (&f)[V]) {
+  if constexpr (V > 1) {
+    Pack<typename T::bits, V> u;
+    u.raw = ld_volatile(reinterpret_cast<const uint4*>(p));
+#pragma unroll
+    for (int i = 0; i < V; ++i) f[i] = T::widen(u.e[i]);
+  } else {
+    f[0] = T::widen(ld_volatile(p));
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store(typename T::bits* p,
+                                      const float (&f)[V]) {
+  if constexpr (V > 1) {
+    Pack<typename T::bits, V> u;
+#pragma unroll
+    for (int i = 0; i < V; ++i) u.e[i] = T::narrow(f[i]);
+    *reinterpret_cast<uint4*>(p) = u.raw;
+  } else {
+    p[0] = T::narrow(f[0]);
+  }
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(REP_TX* REP_TY)
+    stream_replicated_kernel(const typename T::bits* __restrict__ x,
+                             typename T::bits* __restrict__ out, int h, int w,
+                             int factor) {
+  const int c = (blockIdx.x * REP_TX + threadIdx.x) * V;
+  if (c >= w) return;
+  const int r0 = blockIdx.y * (REP_TY * REP_K) + threadIdx.y;
+  float acc[REP_K][V];
+#pragma unroll
+  for (int k = 0; k < REP_K; ++k) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[k][i] = 0.0f;
+  }
+  for (int f = 0; f < factor; ++f) {
+#pragma unroll
+    for (int k = 0; k < REP_K; ++k) {
+      const int r = r0 + k * REP_TY;
+      if (r < h) {
+        float v[V];
+        load_volatile<T, V>(x + static_cast<size_t>(r) * w + c, v);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[k][i] = __fadd_rn(acc[k][i], v[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < REP_K; ++k) {
+    const int r = r0 + k * REP_TY;
+    if (r < h) store<T, V>(out + static_cast<size_t>(r) * w + c, acc[k]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6a: move a (bm + 2)-row window and write its interior, no math. out is
+// (h - 2, w - 2) = u[1:-1, 1:-1]. One block per (bm-row block, column chunk
+// of CHUNK_BYTES): it stages the window's rows and the chunk's columns plus
+// one on either side through shared memory, then writes the interior out of
+// it. Unlike the TPU kernel, the last row block may be ragged, so every
+// output row is written.
+
+#define CHUNK_BYTES 512
+
+template <typename E>
+__global__ void __launch_bounds__(THREADS)
+    dma_only_kernel(const E* __restrict__ u, E* __restrict__ out, int h,
+                    int w, int bm) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* win = reinterpret_cast<E*>(smem_raw);
+  constexpr int CW = CHUNK_BYTES / sizeof(E);
+  constexpr int PITCH = CW + 2;
+  const int hi = h - 2, wi = w - 2;
+  const int r0 = blockIdx.y * bm, c0 = blockIdx.x * CW;
+  const int rows = min(bm, hi - r0), cols = min(CW, wi - c0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  for (int rr = warp; rr < rows + 2; rr += warps) {
+    const E* src = u + static_cast<size_t>(r0 + rr) * w + c0;
+    for (int cc = lane; cc < cols + 2; cc += 32) win[rr * PITCH + cc] = src[cc];
+  }
+  __syncthreads();
+  for (int rr = warp; rr < rows; rr += warps) {
+    E* dst = out + static_cast<size_t>(r0 + rr) * wi + c0;
+    for (int cc = lane; cc < cols; cc += 32) {
+      dst[cc] = win[(rr + 1) * PITCH + cc + 1];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K6b: the Jacobi sweep's arithmetic on resident data, ((c + c + c + c) *
+// 0.25) in f32, rounded once. Block rows [b * bm, min((b + 1) * bm, h)) of
+// the array are one contiguous range of elements (the last block ragged);
+// gridDim.x blocks cut each range into chunks of THREADS * 4 16-byte units.
+// A chunk takes 16-byte vectors where its block's range starts 16-byte
+// aligned, elements otherwise, and its tail elements one by one.
+
+__device__ __forceinline__ float quad_quarter(float c) {
+  return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(c, c), c), c), 0.25f);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+    compute_only_kernel(const typename T::bits* __restrict__ u,
+                        typename T::bits* __restrict__ out, int h, int w,
+                        int bm) {
+  using B = typename T::bits;
+  constexpr int V = 16 / sizeof(B);
+  constexpr int CHUNK = THREADS * 4 * V;  // elements
+  const size_t start = static_cast<size_t>(blockIdx.y) * bm * w;
+  const size_t end =
+      static_cast<size_t>(min(static_cast<int>(blockIdx.y + 1) * bm, h)) * w;
+  const size_t c0 = start + static_cast<size_t>(blockIdx.x) * CHUNK;
+  if (c0 >= end) return;
+  const int n = end - c0 < CHUNK ? static_cast<int>(end - c0) : CHUNK;
+  const B* s = u + c0;
+  B* d = out + c0;
+  int done = 0;
+  if (aligned16(u + start) && aligned16(out + start)) {
+    const int nv = n / V;
+    for (int k = threadIdx.x; k < nv; k += THREADS) {
+      Pack<B, V> p;
+      p.raw = reinterpret_cast<const uint4*>(s)[k];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        p.e[i] = T::narrow(quad_quarter(T::widen(p.e[i])));
+      }
+      reinterpret_cast<uint4*>(d)[k] = p.raw;
+    }
+    done = nv * V;
+  }
+  for (int k = done + threadIdx.x; k < n; k += THREADS) {
+    d[k] = T::narrow(quad_quarter(T::widen(s[k])));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launchers. esize: bytes an element (2 or 4). dtype: 0 = f32, 1 = bf16,
+// 2 = int32. The wrappers check shapes, divisibility, alignment and dtype
+// before they call; the launchers refuse what would index out of bounds.
+
+template <typename K>
+static cudaError_t opt_in_smem(K* kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+extern "C" cudaError_t repro_stream_copy(const void* x, void* out, int esize,
+                                         int h, int w, int bm, int bn,
+                                         int g, void* stream) {
+  if (h < 1 || w < 1 || bm < 1 || bn < 1 || h % bm || w % bn || g < 1 ||
+      g > 32 || (g & (g - 1))) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles_w = w / bn;
+  const unsigned blocks = static_cast<unsigned>((h / bm) * tiles_w);
+  if (esize == 4) {
+    stream_copy_kernel<uint32_t><<<blocks, COPY_THREADS, 0, s>>>(
+        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), w, bm,
+        bn, tiles_w, g);
+  } else if (esize == 2) {
+    stream_copy_kernel<uint16_t><<<blocks, COPY_THREADS, 0, s>>>(
+        static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), w, bm,
+        bn, tiles_w, g);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t repro_stream_rowdma(const void* x, void* out,
+                                           int esize, int h, int w, int bm,
+                                           int sync, int ring, void* stream) {
+  const size_t row_bytes = static_cast<size_t>(w) * esize;
+  const size_t smem = RING_BARS + static_cast<size_t>(ring) * row_bytes;
+  if (h < 1 || w < 1 || bm < 1 || h % bm || (esize != 2 && esize != 4) ||
+      row_bytes % 16 || ring < 1 || ring > RING_BARS / 8 || ring > bm ||
+      smem > MAX_SMEM || !aligned16(x) || !aligned16(out)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = opt_in_smem(stream_rowdma_kernel, smem);
+  if (err != cudaSuccess) return err;
+  stream_rowdma_kernel<<<h / bm, THREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out),
+      static_cast<uint32_t>(row_bytes), bm, ring, sync);
+  return cudaGetLastError();
+}
+
+template <typename T, int V>
+static cudaError_t launch_replicated(const void* x, void* out, int h, int w,
+                                     int factor, cudaStream_t s) {
+  const int units = w / V;
+  const dim3 grid((units + REP_TX - 1) / REP_TX,
+                  (h + REP_TY * REP_K - 1) / (REP_TY * REP_K));
+  stream_replicated_kernel<T, V><<<grid, dim3(REP_TX, REP_TY), 0, s>>>(
+      static_cast<const typename T::bits*>(x),
+      static_cast<typename T::bits*>(out), h, w, factor);
+  return cudaGetLastError();
+}
+
+// vec: 16-byte vectors along rows (the caller checks that w * sizeof and
+// both pointers are 16-byte aligned).
+extern "C" cudaError_t repro_stream_replicated(const void* x, void* out,
+                                               int dtype, int h, int w,
+                                               int factor, int vec,
+                                               void* stream) {
+  if (h < 1 || w < 1 || factor < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return vec ? launch_replicated<F32, 4>(x, out, h, w, factor, s)
+                 : launch_replicated<F32, 1>(x, out, h, w, factor, s);
+    case 1:
+      return vec ? launch_replicated<BF16, 8>(x, out, h, w, factor, s)
+                 : launch_replicated<BF16, 1>(x, out, h, w, factor, s);
+    case 2:
+      return vec ? launch_replicated<I32, 4>(x, out, h, w, factor, s)
+                 : launch_replicated<I32, 1>(x, out, h, w, factor, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename E>
+static cudaError_t launch_dma_only(const void* u, void* out, int h, int w,
+                                   int bm, cudaStream_t s) {
+  constexpr int CW = CHUNK_BYTES / sizeof(E);
+  const size_t smem = static_cast<size_t>(bm + 2) * (CW + 2) * sizeof(E);
+  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  cudaError_t err = opt_in_smem(dma_only_kernel<E>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((w - 2 + CW - 1) / CW, (h - 2 + bm - 1) / bm);
+  dma_only_kernel<E><<<grid, THREADS, smem, s>>>(
+      static_cast<const E*>(u), static_cast<E*>(out), h, w, bm);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t repro_dma_only(const void* u, void* out, int esize,
+                                      int h, int w, int bm, void* stream) {
+  if (h < 3 || w < 3 || bm < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (esize == 4) return launch_dma_only<uint32_t>(u, out, h, w, bm, s);
+  if (esize == 2) return launch_dma_only<uint16_t>(u, out, h, w, bm, s);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+static cudaError_t launch_compute_only(const void* u, void* out, int h,
+                                       int w, int bm, cudaStream_t s) {
+  constexpr int CHUNK = THREADS * 4 * (16 / sizeof(typename T::bits));
+  const size_t per_block = static_cast<size_t>(bm) * w;
+  const dim3 grid(static_cast<unsigned>((per_block + CHUNK - 1) / CHUNK),
+                  (h + bm - 1) / bm);
+  if (grid.x > 2147483647u || grid.y > 65535u) return cudaErrorInvalidValue;
+  compute_only_kernel<T><<<grid, THREADS, 0, s>>>(
+      static_cast<const typename T::bits*>(u),
+      static_cast<typename T::bits*>(out), h, w, bm);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t repro_compute_only(const void* u, void* out, int dtype,
+                                          int h, int w, int bm,
+                                          void* stream) {
+  if (h < 1 || w < 1 || bm < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_compute_only<F32>(u, out, h, w, bm, s);
+  if (dtype == 1) return launch_compute_only<BF16>(u, out, h, w, bm, s);
+  return cudaErrorInvalidValue;
+}

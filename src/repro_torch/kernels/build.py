@@ -25,7 +25,7 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("stencil", "flash_attention", "conv1d")
+SOURCES = ("stencil", "flash_attention", "conv1d", "stream")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -120,6 +120,13 @@ SIGNATURES = {
     },
     "conv1d": {
         "repro_conv1d": [P, P, P, P, I, I, I, I, I, I, I, P],
+    },
+    "stream": {
+        "repro_stream_copy": [P, P, I, I, I, I, I, I, P],
+        "repro_stream_rowdma": [P, P, I, I, I, I, I, I, P],
+        "repro_stream_replicated": [P, P, I, I, I, I, I, P],
+        "repro_dma_only": [P, P, I, I, I, I, P],
+        "repro_compute_only": [P, P, I, I, I, I, P],
     },
 }
 

@@ -248,3 +248,115 @@ def test_smoke_mamba_through_the_conv_kernel(cuda):
     done = ServeEngine(model, batch_size=2, max_len=40).generate(reqs)
     assert TK.LAUNCHES["conv1d"] == cfg.n_layers
     assert all(len(r.generated) == 4 for r in done)
+
+
+STREAM_DTYPES = [torch.int32, torch.float32, torch.bfloat16]
+
+
+def _values(shape, dtype, dev, seed=0):
+    """Values of a few thousand (ints truncated from them) on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(shape, generator=g) * 3000).to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("dtype", STREAM_DTYPES)
+@pytest.mark.parametrize("h,w,bm,bn", [
+    (256, 4096, 256, 4096), (256, 1024, 256, 8), (1024, 64, 1024, 8),
+    (64, 1024, 64, 1024), (96, 258, 32, 129), (256, 1026, 128, 1026),
+    (128, 514, 128, 514), (30, 45, 3, 5)])
+def test_stream_copy_kernel_equals_plain(cuda, h, w, bm, bn, dtype):
+    from repro_torch.kernels import stream as TK
+    x = _values((h, w), dtype, cuda)
+    before = TK.LAUNCHES["stream_copy"]
+    got = TK.stream_copy(x, bm=bm, bn=bn)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["stream_copy"] == before + 1
+    assert torch.equal(got, TK.stream_copy_plain(x, bm=bm, bn=bn))
+
+
+@pytest.mark.parametrize("dtype", STREAM_DTYPES)
+@pytest.mark.parametrize("sync", [False, True])
+@pytest.mark.parametrize("h,w,bm", [(256, 4096, 64), (128, 256, 16),
+                                    (96, 40, 32), (20, 8, 1)])
+def test_stream_rowdma_kernel_equals_plain(cuda, h, w, bm, sync, dtype):
+    from repro_torch.kernels import stream as TK
+    x = _values((h, w), dtype, cuda, seed=1)
+    before = TK.LAUNCHES["stream_copy_rowdma"]
+    got = TK.stream_copy_rowdma(x, bm=bm, sync=sync)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["stream_copy_rowdma"] == before + 1
+    assert torch.equal(got, x)
+
+
+def test_stream_rowdma_kernel_refuses_rows_it_cannot_move(cuda):
+    from repro_torch.kernels import stream as TK
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        TK.stream_copy_rowdma(_values((8, 1026), torch.float32, cuda),
+                              bm=8, sync=False)
+    flat = _values((8 * 64 + 1,), torch.int32, cuda)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        TK.stream_copy_rowdma(flat[1:].view(8, 64), bm=8, sync=True)
+    with pytest.raises(ValueError, match="does not fit"):
+        TK.stream_copy_rowdma(_values((2, 65536), torch.float32, cuda),
+                              bm=2, sync=False)
+
+
+@pytest.mark.parametrize("dtype", STREAM_DTYPES)
+@pytest.mark.parametrize("factor", [1, 3, 7, 32])
+@pytest.mark.parametrize("h,w,bm", [(512, 4096, 128), (96, 258, 32),
+                                    (31, 7, 31)])
+def test_stream_replicated_kernel_equals_plain(cuda, h, w, bm, factor,
+                                               dtype):
+    from repro_torch.kernels import stream as TK
+    x = _values((h, w), dtype, cuda, seed=factor)
+    before = TK.LAUNCHES["stream_replicated"]
+    got = TK.stream_replicated(x, bm=bm, factor=factor)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["stream_replicated"] == before + 1
+    assert torch.equal(got, TK.stream_replicated_plain(x, bm=bm,
+                                                       factor=factor))
+
+
+def test_stream_replicated_kernel_unaligned_view(cuda):
+    """A view 4 bytes into its storage takes the element-wise path."""
+    from repro_torch.kernels import stream as TK
+    flat = _values((64 * 256 + 1,), torch.float32, cuda)
+    x = flat[1:].view(64, 256)
+    got = TK.stream_replicated(x, bm=32, factor=5)
+    assert torch.equal(got, TK.stream_replicated_plain(x, bm=32, factor=5))
+
+
+@pytest.mark.parametrize("dtype", STREAM_DTYPES)
+@pytest.mark.parametrize("h,w,bm", [(66, 130, 64), (100, 130, 16),
+                                    (514, 514, 64), (1026, 9218, 64),
+                                    (3, 3, 1), (40, 2000, 256)])
+def test_dma_only_kernel_equals_plain(cuda, h, w, bm, dtype):
+    from repro_torch.kernels import components as TK
+    u = _values((h, w), dtype, cuda, seed=2)
+    before = TK.LAUNCHES["dma_only"]
+    got = TK.dma_only(u, bm=bm)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["dma_only"] == before + 1
+    assert torch.equal(got, TK.dma_only_plain(u, bm=bm))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,bm", [(514, 514, 64), (1026, 9218, 64),
+                                    (100, 130, 16), (5, 3, 2),
+                                    (300, 1000, 7)])
+def test_compute_only_kernel_equals_plain(cuda, h, w, bm, dtype):
+    from repro_torch.kernels import components as TK
+    u = _values((h, w), dtype, cuda, seed=3)
+    before = TK.LAUNCHES["compute_only"]
+    got = TK.compute_only(u, bm=bm)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["compute_only"] == before + 1
+    assert torch.equal(got, TK.compute_only_plain(u, bm=bm))
+
+
+def test_access_tables_run_on_the_card(cuda):
+    from repro_torch.launch import access
+    for table in sorted(access.TABLES):
+        for line in access.table_rows(table, cuda, scale=8):
+            name, us, _ = line.split(",")
+            assert (float(us) == 0.0) == name.startswith("paper_"), line

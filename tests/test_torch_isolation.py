@@ -32,12 +32,15 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     res = _python("-c", code)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout
-    assert "repro_torch.engine.dispatch" in MODULES
+    assert {"repro_torch.engine.dispatch", "repro_torch.kernels.stream",
+            "repro_torch.kernels.components",
+            "repro_torch.launch.access"} <= set(MODULES)
 
 
 def test_source_has_no_jax_or_repro_imports():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
-    offenders = [str(p) for p in PORT.rglob("*.py")
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)(\.|\s|$)",
+                     re.M)
+    offenders = [str(p) for p in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]
                  if pat.search(p.read_text())]
     assert offenders == []
 
