@@ -25,17 +25,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    policy (K4), ``run_converged`` with a tolerance that stops early, and
    ``run_batched`` with B=4, each lane equal to its solo run bit for bit;
 6. K8 (flash attention) against its plain PyTorch version on the card, at
-   the JAX package's test shapes and at the serving shape B=4, S=2048,
-   H=16, K=2, hd=128 causal, in f32 (rtol=atol=2e-5) and bf16 (3e-2),
-   the JAX package's own tolerances; at the serving shape the kernel, its
-   plain version and ``scaled_dot_product_attention`` (a yardstick only)
-   are timed beside the bound;
+   the JAX package's test shapes, at GQA groups of 3 and 5, hd 256,
+   lengths that are not a multiple of the key tile, and at the serving
+   shape B=4, S=2048, H=16, K=2, hd=128 causal, in f32 (rtol=atol=2e-5,
+   the CUDA-core kernel) and bf16 (3e-2, the tensor-core kernel), the JAX
+   package's own tolerances; every case must have launched its dtype's
+   kernel. At the serving shape each route, its plain version and
+   ``scaled_dot_product_attention`` (a yardstick only) are timed beside
+   the bound (bf16 on the tensor cores' rate, f32 on the CUDA cores');
 7. LM serving, the second main path: ``qwen2.5-3b`` at full width (36
    layers, d 2048) with ``attn_impl="flash"``, random weights from a
    seeded generator, ``ServeEngine(batch_size=4)`` serving 4 requests of
    2048-token prompts and 32 new greedy tokens. Every request must get 32
    tokens within the padded vocab, K8 must launch 36 times (once a layer
-   in the one prefill wave), and the prefill logits must be within
+   in the one prefill wave), all 36 on the tensor-core kernel
+   (``flash_attention_wgmma``), and the prefill logits must be within
    rtol=5e-2, atol=8e-2 of the same weights through ``attn_impl="jnp"``
    (the JAX package's own bound); both are also compared, as a
    diagnostic, with the same prefill in f32 compute. Prefill ms and
@@ -86,6 +90,7 @@ import pathlib
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -125,12 +130,19 @@ KERNELS = {  # policy -> (id, TPU kernel it replaces)
     "shifted": ("K4", "src/repro/engine/policies.py:83"),
 }
 SOURCE = "src/repro_torch/csrc/stencil.cu"
-FLASH = ("K8", "src/repro_torch/csrc/flash_attention.cu",
-         "src/repro/kernels/flash_attention.py:82")
+FLASH = ("K8", "src/repro/kernels/flash_attention.py:82")
+# dtype -> (route, source): the kernel is chosen by dtype.
+FLASH_ROUTES = {
+    "bfloat16": ("wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu"),
+    "float32": ("cuda-core", "src/repro_torch/csrc/flash_attention.cu")}
 # (B, S, H, K, hd, causal, bq=bk): the shapes of tests/test_kernels_flash.py
-# at their 64-row blocks, then the serving prefill's shape.
+# at their 64-row blocks, GQA groups of 3 and 5, hd 256, lengths that are
+# not a multiple of the key tile, then the serving prefill's shape.
 FLASH_SHAPES = [(2, 128, 4, 2, 32, True, 64), (1, 256, 8, 8, 16, True, 64),
                 (2, 128, 4, 1, 32, False, 64), (1, 64, 2, 2, 64, True, 64),
+                (1, 192, 6, 2, 128, True, 64), (2, 96, 3, 3, 256, True, 32),
+                (1, 128, 12, 4, 64, True, 64), (2, 300, 16, 2, 128, True, 300),
+                (1, 130, 5, 1, 32, False, 130),
                 (4, 2048, 16, 2, 128, True, 512)]
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 CONV = ("K7", "src/repro_torch/csrc/conv1d.cu",
@@ -154,12 +166,23 @@ STREAM = {  # wrapper -> (id, TPU kernel it replaces, its main table shape)
     "compute_only": ("K6b", "benchmarks/table2_components.py:52",
                      "1026x9218 bfloat16 bm=64 (Table II)"),
 }
-# (memory bytes/s, f32 FLOP/s outside the tensor cores), data-sheet peaks.
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
 
 
-def card() -> tuple[str, tuple[float, float]]:
+class Peaks(NamedTuple):
+    """Data-sheet peaks: memory bytes/s, f32 FLOP/s outside the tensor
+    cores, dense bf16 FLOP/s on the tensor cores."""
+    bw: float
+    f32: float
+    bf16: float
+
+
+PEAKS = {"H100 PCIe": Peaks(2.0e12, 51e12, 756e12),
+         "H100 NVL": Peaks(3.9e12, 60e12, 835e12),
+         "H200": Peaks(4.8e12, 67e12, 989e12),
+         "H100": Peaks(3.35e12, 67e12, 989e12)}
+
+
+def card() -> tuple[str, Peaks]:
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -185,7 +208,7 @@ def bound_ms(policy: str, spec: StencilSpec, u: torch.Tensor, t: int,
              peaks) -> tuple[float, str]:
     """Least time for the function: each input byte read once and each
     output byte written once, against the f32 operations it must do."""
-    bw, flops = peaks
+    bw, flops = peaks.bw, peaks.f32
     r = spec.radius
     hi, wi = u.shape[-2] - 2 * r, u.shape[-1] - 2 * r
     nbytes = u.numel() * u.element_size() + hi * wi * u.element_size()
@@ -363,31 +386,36 @@ def phase_paths(stats) -> None:
 
 def flash_bound_ms(q, k, causal: bool, peaks) -> tuple[float, str]:
     """Least time for attention on these inputs: q, k, v read once and o
-    written once, against 4*hd f32 operations for every (query row, key)
-    pair the causal mask keeps."""
-    bw, flops = peaks
+    written once, against 4*hd operations for every (query row, key) pair
+    the causal mask keeps, at the dense bf16 tensor-core rate for bf16 and
+    the CUDA cores' f32 rate for f32."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
              else sq * sk)
     ops = 4 * hd * pairs * b * h
+    rate = peaks.bf16 if q.dtype == torch.bfloat16 else peaks.f32
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    b_ms, o_ms = nbytes / bw * 1e3, ops / flops * 1e3
+    b_ms, o_ms = nbytes / peaks.bw * 1e3, ops / rate * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
 def phase_flash(peaks, stats) -> None:
-    print("== phase 6: K8 flash attention vs its plain version ==")
-    s = stats.setdefault("flash", {"max_abs_err": 0.0})
+    print("== phase 6: K8 flash attention vs its plain version (bf16 on "
+          "the tensor-core kernel, f32 on the CUDA-core kernel) ==")
+    s = stats.setdefault("flash", {d: {"max_abs_err": 0.0} for d in DTYPES})
     for b, sq, h, kh, hd, causal, blk in FLASH_SHAPES:
         for dname, dtype in DTYPES.items():
+            route = FLASH_ROUTES[dname][0]
             g = torch.Generator(device="cuda").manual_seed(sq + h)
             q, k, v = (torch.randn(shape, generator=g, device="cuda"
                                    ).to(dtype)
                        for shape in ((b, sq, h, hd), (b, sq, kh, hd),
                                      (b, sq, kh, hd)))
+            flash.reset_launch_counts()
             got = flash.flash_attention_local(q, k, v, causal=causal,
                                               bq=blk, bk=blk)
+            launched = dict(flash.LAUNCHES)
             want = flash.flash_attention_local_plain(q, k, v, causal=causal,
                                                      bq=blk, bk=blk)
             torch.cuda.synchronize()
@@ -396,13 +424,17 @@ def phase_flash(peaks, stats) -> None:
             err = float(diff.max())
             worst = float((diff - tol * want.float().abs()).max())
             label = f"B={b} S={sq} H={h} K={kh} hd={hd} causal={causal}"
+            check(launched == {"flash_attention": 1,
+                               "flash_attention_wgmma": int(route == "wgmma")},
+                  f"K8 {label} {dname} must launch the {route} kernel once: "
+                  f"{launched}")
             check(got.shape == q.shape and got.dtype == dtype
                   and bool(got.float().isfinite().all()) and worst <= tol,
                   f"K8 {label} {dname}: max |err| {err} over rtol=atol={tol}")
-            s["max_abs_err"] = max(s["max_abs_err"], err)
+            s[dname]["max_abs_err"] = max(s[dname]["max_abs_err"], err)
             if sq != PROMPT:
-                print(f"K8 {label:42s} {dname:8s} max|err|={err:.3e} "
-                      f"(tol {tol:g})")
+                print(f"K8 {label:42s} {dname:8s} {route:9s} "
+                      f"max|err|={err:.3e} (tol {tol:g})")
                 continue
             k_ms = device_ms(lambda: flash.flash_attention_local(
                 q, k, v, causal=causal), reps=5, inner=5)
@@ -413,11 +445,11 @@ def phase_flash(peaks, stats) -> None:
                 qt, kt, vt, is_causal=causal, enable_gqa=True), reps=5,
                 inner=5)
             b_ms, b_by = flash_bound_ms(q, k, causal, peaks)
-            print(f"K8 {label:42s} {dname:8s} max|err|={err:.3e} "
-                  f"(tol {tol:g}) kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
-                  f"bound_ms={b_ms:.6f} ({b_by}) sdpa_ms={lib_ms:.6f}")
-            s[dname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": lib_ms}
+            print(f"K8 {label:42s} {dname:8s} {route:9s} max|err|={err:.3e} "
+                  f"(tol {tol:g}) kernel_ms={k_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) sdpa_ms={lib_ms:.6f} "
+                  f"plain_ms={p_ms:.6f}")
+            s[dname].update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms)
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -464,9 +496,11 @@ def phase_serve(smi: str, stats) -> None:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"launches: {counts}")
     check(counts["flash_attention"] == cfg.n_layers
+          and counts["flash_attention_wgmma"] == cfg.n_layers
           and sum(engine.LAUNCHES.values()) == 0,
-          f"one prefill wave must launch K8 once a layer ({cfg.n_layers})")
-    stats["flash"].update(launches=counts["flash_attention"],
+          f"one prefill wave must launch K8 once a layer ({cfg.n_layers}), "
+          f"each on the tensor-core kernel")
+    stats["flash"].update(launches=counts["flash_attention_wgmma"],
                           path="ServeEngine.generate(qwen2.5-3b, flash)")
     for i, r in enumerate(done):
         check(len(r.generated) == NEW
@@ -527,7 +561,7 @@ def phase_serve(smi: str, stats) -> None:
 def conv_bound_ms(x, w, b, peaks) -> tuple[float, str]:
     """Least time for the conv: x, w, b read once and out written once,
     against 2K-1 f32 operations an output (one more with a bias)."""
-    bw, flops = peaks
+    bw, flops = peaks.bw, peaks.f32
     nbytes = (2 * x.numel() + w.numel()
               + (0 if b is None else b.numel())) * x.element_size()
     ops = (2 * w.shape[0] - 1 + (b is not None)) * x.numel()
@@ -719,7 +753,7 @@ def phase_stream(peaks, stats) -> None:
     print("== phase 10: the memory-access study, K5a-c and K6a-b vs their "
           "plain versions, bit for bit, then launch.access on Tables II-VI "
           "==")
-    bw, flops = peaks
+    bw, flops = peaks.bw, peaks.f32
     for name in STREAM:
         stats[name] = {"max_abs_err": 0.0}
     for seed, (name, shape, kw, dtypes) in enumerate(stream_cases()):
@@ -829,14 +863,16 @@ def main() -> None:
             "path": s["path"], "max_abs_err": s["max_abs_err"],
             "dtype": "bfloat16", **s["bfloat16"],
             "float32": s["float32"]})
-    kid, source, replaces = FLASH
+    kid, replaces = FLASH
     s = stats["flash"]
     kernels.append({
-        "name": f"{kid} flash_attention", "route": "cuda", "source": source,
-        "replaces": replaces, "launches": s["launches"], "path": s["path"],
-        "max_abs_err": s["max_abs_err"], "dtype": "bfloat16",
+        "name": f"{kid} flash_attention", "route": "cuda",
+        "source": FLASH_ROUTES["bfloat16"][1], "replaces": replaces,
+        "launches": s["launches"], "path": s["path"], "dtype": "bfloat16",
+        "kernel": "wgmma (tensor cores)",
         "shape": "B=4 S=2048 H=16 K=2 hd=128 causal", **s["bfloat16"],
-        "float32": s["float32"]})
+        "float32": {"kernel": "cuda-core",
+                    "source": FLASH_ROUTES["float32"][1], **s["float32"]}})
     kid, source, replaces = CONV
     s = stats["conv1d"]
     kernels.append({

@@ -1,12 +1,11 @@
-// Hand-written Hopper (sm_90a) flash-attention forward (K8).
+// Hand-written Hopper (sm_90a) flash-attention forward (K8), float32.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (`flash_attention_local`, body `_kernel`) and computes its function:
-// GQA attention with an online softmax, all in f32 inside, one rounding
-// to the input dtype at the end.
+// GQA attention with an online softmax, all in f32.
 //
 //   q (B, Sq, H, hd), k and v (B, Sk, KH, hd), H = KH * G, row-major and
-//   contiguous, float32 or bfloat16 (all three the same); o like q.
+//   contiguous, float32; o like q.
 //
 // What it keeps from the TPU kernel:
 //   * q is scaled by `scale` (hd**-0.5 rounded to f32) in f32 before the
@@ -15,13 +14,12 @@
 //   * the running max m, sum l and accumulator are f32; m starts at -1e30,
 //     a key after the query (causal, by absolute index) scores -1e30, and
 //     whole key tiles after a block's last query are skipped;
-//   * the output is acc / max(l, 1e-30), rounded once (round to nearest
-//     even for bf16).
+//   * the output is acc / max(l, 1e-30).
 // What differs: the TPU kernel rescales its running sums once per key
 // block of bk (<= 512) keys; this kernel does so once per tile of 64 keys.
 // That moves f32 roundings only (the softmax is the same function); the
 // plain version (kernels/flash_attention.py) keeps the TPU kernel's bq/bk
-// tile order, and the two are held to 2e-5 in f32, 3e-2 in bf16.
+// tile order, and the two are held to 2e-5.
 //
 // Design. One block owns FA_ROWS = 64 rows of one (batch, kv_head): TQ =
 // 64 / G query positions times the G heads that share the KV head, so K
@@ -40,14 +38,15 @@
 // that the mask keeps (2*hd for q.k, 2*hd for p*v) on the CUDA cores at
 // 67 TFLOP/s, against each of q, k, v read once and o written once at
 // 3.35 TB/s: at serving shapes (S = 2048, hd = 128) the operations bound
-// it (about 1 ms against 0.02 ms of bytes). Tensor cores (wgmma, bf16 P)
-// would lower that bound and are later work.
+// it (about 1 ms against 0.02 ms of bytes). The port sends only float32
+// here: full f32 has no tensor-core product, and TF32 would miss the f32
+// gate of 2e-5. bfloat16 inputs go to the tensor-core kernel in
+// flash_attention_sm90.cu (wgmma, bf16 P).
 //
 // C interface: repro_flash_attention(...) returns the launch's
 // cudaGetLastError(). Built by repro_torch/kernels/build.py with nvcc
 // -gencode arch=compute_90a,code=sm_90a and loaded with ctypes.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
@@ -57,19 +56,6 @@
 #define FA_KEYS 64             // keys of a shared-memory tile
 #define FA_LD (FA_ROWS + 4)    // pitch of the d-major tiles (float4 rows)
 #define FA_NEG_INF (-1e30f)
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // The output columns a thread owns: NV groups of VEC adjacent columns,
 // group i of thread tx starting at i*16*VEC + tx*VEC.
@@ -103,11 +89,11 @@ constexpr size_t smem_floats() {
          (size_t)FA_KEYS * HD;
 }
 
-template <int HD, typename T>
+template <int HD>
 __global__ void __launch_bounds__(FA_THREADS, HD <= 128 ? 2 : 1)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk, int H,
-          int KH, int G, int TQ, int causal, float scale) {
+flash_fwd(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, float* __restrict__ o, int Sq, int Sk,
+          int H, int KH, int G, int TQ, int causal, float scale) {
   using C = Cols<HD>;
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                  // q * scale, d-major
@@ -124,8 +110,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int r = idx / HD, d = idx % HD, qp = q0 + r / G;
     float val = 0.f;
     if (r < rows && qp < Sq)
-      val = to_f32(q[(((size_t)b * Sq + qp) * H + kh * G + r % G) * HD + d]) *
-            scale;
+      val = q[(((size_t)b * Sq + qp) * H + kh * G + r % G) * HD + d] * scale;
     Qt[d * FA_LD + r] = val;
   }
 
@@ -149,8 +134,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       float kv = 0.f, vv = 0.f;
       if (kp < Sk) {
         const size_t off = (((size_t)b * Sk + kp) * KH + kh) * HD + d;
-        kv = to_f32(k[off]);
-        vv = to_f32(v[off]);
+        kv = k[off];
+        vv = v[off];
       }
       Kt[d * FA_LD + c] = kv;
       Vs[c * HD + d] = vv;
@@ -235,60 +220,47 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     const int r = ty * 4 + i;
     if (r >= rows || qpos[i] >= Sq) continue;
     const float li = fmaxf(l[i], 1e-30f);
-    T* orow = o + (((size_t)b * Sq + qpos[i]) * H + kh * G + r % G) * HD;
+    float* orow = o + (((size_t)b * Sq + qpos[i]) * H + kh * G + r % G) * HD;
 #pragma unroll
     for (int g = 0; g < C::NV; ++g)
 #pragma unroll
       for (int j = 0; j < C::VEC; ++j)
-        orow[C::col(tx, g) + j] = from_f32<T>(acc[i][g * C::VEC + j] / li);
+        orow[C::col(tx, g) + j] = acc[i][g * C::VEC + j] / li;
   }
 }
 
-template <int HD, typename T>
+template <int HD>
 static cudaError_t launch(const void* q, const void* k, const void* v,
                           void* o, int B, int Sq, int Sk, int H, int KH,
                           int causal, float scale, cudaStream_t stream) {
   const int G = H / KH, TQ = FA_ROWS / G;
   const size_t bytes = smem_floats<HD>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<HD, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + TQ - 1) / TQ, KH, B);
-  flash_fwd<HD, T><<<grid, FA_THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KH, G, TQ,
-      causal, scale);
+  flash_fwd<HD><<<grid, FA_THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KH, G,
+      TQ, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-static cudaError_t launch_hd(int hd, const void* q, const void* k,
-                             const void* v, void* o, int B, int Sq, int Sk,
-                             int H, int KH, int causal, float scale,
-                             cudaStream_t s) {
-  switch (hd) {
-    case 16: return launch<16, T>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
-    case 32: return launch<32, T>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
-    case 64: return launch<64, T>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
-    case 128: return launch<128, T>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
-    case 256: return launch<256, T>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// dtype: 0 float32, 1 bfloat16. The wrapper has checked shapes, H % KH == 0,
-// G = H / KH <= 64 and hd in {16, 32, 64, 128, 256}.
+// The wrapper has checked shapes, H % KH == 0, G = H / KH <= 64 and hd in
+// {16, 32, 64, 128, 256}.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int dtype, int B,
-                                     int Sq, int Sk, int H, int KH, int hd,
+                                     const void* v, void* o, int B, int Sq,
+                                     int Sk, int H, int KH, int hd,
                                      int causal, float scale, void* stream) {
   if (KH <= 0 || H % KH != 0 || H / KH > FA_ROWS) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_hd<float>(hd, q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, Sq, Sk, H, KH, causal,
-                                    scale, s);
-  return cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    case 256: return launch<256>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -25,7 +25,8 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("stencil", "flash_attention", "conv1d", "stream")
+SOURCES = ("stencil", "flash_attention", "flash_attention_sm90", "conv1d",
+           "stream")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -115,8 +116,11 @@ SIGNATURES = {
                           P],
     },
     "flash_attention": {
-        "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, I, F32,
-                                  P],
+        "repro_flash_attention": [P, P, P, P, I, I, I, I, I, I, I, F32, P],
+    },
+    "flash_attention_sm90": {
+        "repro_flash_attention_sm90": [P, P, P, P, I, I, I, I, I, I, I, F32,
+                                       P],
     },
     "conv1d": {
         "repro_conv1d": [P, P, P, P, I, I, I, I, I, I, I, P],

@@ -1,22 +1,38 @@
-"""Fused flash-attention forward (K8): the CUDA kernel and its plain version.
+"""Fused flash-attention forward (K8): the CUDA kernels and the plain version.
 
 Twin of ``repro.kernels.flash_attention``. :func:`flash_attention_local`
-follows the device of its inputs: on CUDA tensors it launches the
-hand-written kernel in ``repro_torch/csrc/flash_attention.cu`` (or
-raises; it never falls back), on CPU tensors it runs
-:func:`flash_attention_local_plain`.
+follows the device of its inputs: on CUDA tensors it launches a
+hand-written kernel (or raises; it never falls back), on CPU tensors it
+runs :func:`flash_attention_local_plain`.
+
+The kernel is chosen by dtype, a rule and not a fallback:
+
+* **bfloat16** goes to ``repro_torch/csrc/flash_attention_sm90.cu``, on
+  the tensor cores: S = Q K^T from bf16 operands with f32 sums, scaled by
+  ``hd**-0.5`` after the product; P split into its bf16 rounding and the
+  bf16 rounding of the rest, two P V products with f32 sums (P to about
+  16 bits: one bf16 P moved the qwen2.5-3b prefill logits out of their
+  serving gate); the running max, the sum (of the f32 P) and the
+  accumulator in f32; one rounding of ``acc / max(l, 1e-30)`` to bf16.
+  128-key tiles (64 at hd 256). A bf16 input it does not take raises.
+* **float32** goes to ``repro_torch/csrc/flash_attention.cu``, on the CUDA
+  cores, everything in f32 (P included), 64-key tiles: full f32 has no
+  tensor-core product, and TF32 would miss the f32 gate of 2e-5.
 
 The plain version is the TPU kernel's loop written with tensor ops: for
 each block of ``bq`` query rows, an online softmax over key blocks of
 ``bk`` in order, causal key blocks past the block's last query skipped,
 everything in f32 (P included), ``acc / max(l, 1e-30)`` rounded once to
-``q.dtype``. The CUDA kernel computes the same function with its own
-64-key tiles (see the note in its source); ``bq``/``bk`` therefore only
-shape the plain version, and both keep the reference's precondition that
-they divide the sequence lengths.
+``q.dtype``. The kernels compute the same function with their own key
+tiles (see the notes in their sources); ``bq``/``bk`` therefore only
+shape the plain version, and all keep the reference's precondition that
+they divide the sequence lengths. Both kernels are held to the plain
+version within 2e-5 in f32 and 3e-2 in bf16.
 
 Forward only (serving prefill needs no gradient). :data:`LAUNCHES`
-counts kernel launches (never the plain version).
+counts kernel launches (never the plain version): ``flash_attention``
+every launch of either kernel, ``flash_attention_wgmma`` those of the
+tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -25,13 +41,15 @@ import torch
 NEG_INF = -1e30
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
-LAUNCHES: dict[str, int] = {"flash_attention": 0}
+LAUNCHES: dict[str, int] = {"flash_attention": 0,
+                             "flash_attention_wgmma": 0}
 
-#: Head dims the kernel is instantiated for, and its largest GQA group.
+#: Head dims both kernels are instantiated for, and their largest GQA
+#: group.
 HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 64
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launch_counts() -> None:
@@ -110,7 +128,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sk, kh = k.shape[1], k.shape[2]
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on one device")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODE:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"the flash kernel takes float32 or bfloat16 q, k, v "
                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
     if hd not in HEAD_DIMS:
@@ -122,15 +140,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash kernel takes contiguous q, k, v")
     from repro_torch.kernels.build import load
+    wgmma = q.dtype == torch.bfloat16  # the route is chosen by dtype
+    if wgmma and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the bf16 flash kernel takes 16-byte aligned q, k, "
+                         "v (its TMA loads need them)")
+    lib = "flash_attention_sm90" if wgmma else "flash_attention"
     out = torch.empty_like(q)
-    err = load("flash_attention").repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, sq, sk, h, kh, hd, int(causal), hd ** -0.5,
+    err = getattr(load(lib), f"repro_{lib}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        h, kh, hd, int(causal), hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
-                           f"cudaError_t {err}")
+        raise RuntimeError(f"{lib} kernel launch failed: cudaError_t {err}")
     LAUNCHES["flash_attention"] += 1
+    if wgmma:
+        LAUNCHES["flash_attention_wgmma"] += 1
     return out
 
 

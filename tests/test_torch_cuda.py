@@ -104,7 +104,8 @@ def test_bad_inputs_raise(cuda):
 FLASH_SHAPES = [(2, 128, 4, 2, 32, True), (1, 256, 8, 8, 16, True),
                 (2, 128, 4, 1, 32, False), (1, 64, 2, 2, 64, True),
                 (1, 192, 6, 2, 128, True), (2, 96, 3, 3, 256, True),
-                (1, 128, 12, 4, 64, True)]
+                (1, 128, 12, 4, 64, True), (4, 2048, 16, 2, 128, True),
+                (2, 300, 16, 2, 128, True), (1, 130, 5, 1, 32, False)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
@@ -117,18 +118,35 @@ def _qkv(b, s, h, kh, hd, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,h,kh,hd,causal", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
-    """Covers GQA groups 1-4, a group of 3 (a partial row block), hd 16 to
-    256, and a length that is not a multiple of the 64-key tile."""
+    """Covers GQA groups 1-8, groups of 3 and 5 (a partial row tile), hd
+    16 to 256, the serving prefill's shape, and lengths that are not a
+    multiple of the key tile (64 keys in f32, 128 in bf16, 64 at hd 256).
+    bf16 goes through the tensor-core kernel, f32 through the CUDA-core
+    one."""
     from repro_torch.kernels import flash_attention as TF
     q, k, v = _qkv(b, s, h, kh, hd, dtype, cuda)
-    before = TF.LAUNCHES["flash_attention"]
+    before = dict(TF.LAUNCHES)
     got = TF.flash_attention_local(q, k, v, causal=causal, bq=s, bk=s)
     torch.cuda.synchronize()
-    assert TF.LAUNCHES["flash_attention"] == before + 1
+    assert TF.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    wgmma = TF.LAUNCHES["flash_attention_wgmma"] - before[
+        "flash_attention_wgmma"]
+    assert wgmma == (1 if dtype == torch.bfloat16 else 0)
     want = TF.flash_attention_local_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_f32_stays_on_the_cuda_core_kernel(cuda):
+    from repro_torch.kernels import flash_attention as TF
+    q, k, v = _qkv(2, 256, 16, 2, 128, torch.float32, cuda, seed=1)
+    TF.reset_launch_counts()
+    got = TF.flash_attention_local(q, k, v)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES == {"flash_attention": 1, "flash_attention_wgmma": 0}
+    torch.testing.assert_close(
+        got, TF.flash_attention_local_plain(q, k, v), rtol=2e-5, atol=2e-5)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -145,6 +163,27 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         TF.flash_attention_local(strided, k, v)
     with pytest.raises(ValueError, match="sq % bq"):
         TF.flash_attention_local(q, k, v, bq=48)
+
+
+def test_flash_bf16_kernel_rejects_what_it_does_not_take(cuda):
+    """bf16 inputs the tensor-core kernel does not take raise; nothing is
+    handed to the CUDA-core kernel or the plain version instead."""
+    from repro_torch.kernels import flash_attention as TF
+    TF.reset_launch_counts()
+    q, k, v = _qkv(1, 128, 4, 2, 48, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        TF.flash_attention_local(q, k, v)
+    q, k, v = _qkv(1, 128, 130, 2, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="at most 64"):
+        TF.flash_attention_local(q, k, v)
+    q, k, v = _qkv(1, 128, 4, 2, 64, torch.bfloat16, cuda)
+    shifted = torch.empty(q.numel() + 4, dtype=q.dtype, device=cuda)
+    unaligned = shifted[4:].view(q.shape)  # 8 bytes past a 16-byte line
+    unaligned.copy_(q)
+    assert unaligned.is_contiguous() and unaligned.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TF.flash_attention_local(unaligned, k, v)
+    assert TF.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0}
 
 
 def test_smoke_lm_serves_through_the_flash_kernel(cuda):
@@ -166,6 +205,7 @@ def test_smoke_lm_serves_through_the_flash_kernel(cuda):
     TF.reset_launch_counts()
     done = ServeEngine(model, batch_size=2, max_len=72).generate(reqs)
     assert TF.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert TF.LAUNCHES["flash_attention_wgmma"] == cfg.n_layers  # bf16
     assert all(len(r.generated) == 4 for r in done)
 
 

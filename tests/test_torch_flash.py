@@ -79,3 +79,60 @@ def test_bad_shapes_raise():
         TF.flash_attention_local(q, k, v)
     with pytest.raises(ValueError, match="one shape"):
         TF.flash_attention_local(q[:, :, :2], k, v[:, :32])
+
+
+def _tensor_core_rounding(q, k, v, causal, split=True, tile=128):
+    """The bf16 tensor-core kernel's arithmetic, written out on the CPU: S
+    = Q K^T of the bf16 values summed in f32, scaled by hd**-0.5 after the
+    product; an online softmax over 128-key tiles in order (running max
+    from -1e30, masked scores -1e30, the sum l of the f32 P); P split into
+    its bf16 rounding and the bf16 rounding of the rest, P_hi V + P_lo V
+    with f32 sums; acc / max(l, 1e-30) rounded once to bf16. With
+    ``split=False`` P V takes P_hi alone."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qf = q.float().reshape(b, s, kh, g, hd).permute(0, 2, 1, 3, 4)
+    kf, vf = (t.float().permute(0, 2, 1, 3) for t in (k, v))
+    pos = torch.arange(s)
+    m = torch.full((b, kh, s, g), TF.NEG_INF)
+    lsum = torch.zeros((b, kh, s, g))
+    acc = torch.zeros((b, kh, s, g, hd))
+    for k0 in range(0, s, tile):
+        sc = torch.einsum("bkqgd,bksd->bkqgs", qf,
+                          kf[:, :, k0:k0 + tile]) * hd ** -0.5
+        if causal:
+            keep = pos[k0:k0 + tile][None, :] <= pos[:, None]
+            sc = torch.where(keep[:, None, :], sc, TF.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        lsum = lsum * alpha + p.sum(dim=-1)
+        p_hi = p.to(torch.bfloat16).float()
+        p_lo = (p - p_hi).to(torch.bfloat16).float() if split else 0 * p
+        vb = vf[:, :, k0:k0 + tile]
+        acc = (acc * alpha[..., None]
+               + torch.einsum("bkqgs,bksd->bkqgd", p_hi, vb)
+               + torch.einsum("bkqgs,bksd->bkqgd", p_lo, vb))
+        m = m_new
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.to(torch.bfloat16).permute(0, 2, 1, 3, 4).reshape(b, s, h, hd)
+
+
+@pytest.mark.parametrize("split", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_rounding_within_the_bf16_bound(causal, split):
+    """The bf16 kernel's roundings (P as two bf16 halves, or P_hi alone,
+    the scale after an f32 Q K^T, 128-key tiles) stay within the bf16
+    gate, rtol = atol = 3e-2, of both the JAX kernel (interpret mode) and
+    the port's plain version, at hd 128, a GQA group of 8 and S 512."""
+    qkv = _inputs(1, 512, 16, 2, 128, seed=3)
+    got = _tensor_core_rounding(*(_torch(a, torch.bfloat16) for a in qkv),
+                                causal, split)
+    jax_out = jax_flash(*(jnp.asarray(a, jnp.bfloat16) for a in qkv),
+                        causal=causal, interpret=True)
+    plain = TF.flash_attention_local_plain(
+        *(_torch(a, torch.bfloat16) for a in qkv), causal=causal)
+    for want in (np.asarray(jax_out, np.float32), plain.float().numpy()):
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
+                                   atol=3e-2)
