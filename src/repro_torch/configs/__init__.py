@@ -12,6 +12,7 @@ ARCHS = {
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "qwen2.5-3b": "repro_torch.configs.qwen2_5_3b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 #: The reference's archs that the port does not run yet, and why.
@@ -19,9 +20,8 @@ NOT_PORTED = {
     "internvl2-2b": "the VLM family",
     "minicpm3-4b": "MLA attention",
     "chatglm3-6b": "its config (dense, partial rotary) and a parity test",
-    "zamba2-7b": "the hybrid family (models/hybrid.py) and K8 at head "
-                 "dim 112",
-    "hubert-xlarge": "the encoder family",
+    "hubert-xlarge": "the encoder family (models/encoder.py) and its "
+                     "entry point",
     "qwen3-moe-30b-a3b": "the MoE family",
     "qwen3-moe-235b-a22b": "the MoE family",
 }

@@ -58,11 +58,13 @@
 #define FA_NEG_INF (-1e30f)
 
 // The output columns a thread owns: NV groups of VEC adjacent columns,
-// group i of thread tx starting at i*16*VEC + tx*VEC.
+// group i of thread tx starting at i*16*VEC + tx*VEC. VEC is the widest
+// of 4, 2, 1 that divides CPT (hd 80 and 112 give an odd CPT, 5 and 7:
+// scalar columns i*16 + tx).
 template <int HD>
 struct Cols {
   static constexpr int CPT = HD / 16;
-  static constexpr int VEC = CPT < 4 ? CPT : 4;
+  static constexpr int VEC = CPT % 4 == 0 ? 4 : CPT % 2 == 0 ? 2 : 1;
   static constexpr int NV = CPT / VEC;
   static __device__ __forceinline__ int col(int tx, int i) {
     return i * 16 * VEC + tx * VEC;
@@ -248,7 +250,7 @@ static cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 // The wrapper has checked shapes, H % KH == 0, G = H / KH <= 64 and hd in
-// {16, 32, 64, 128, 256}.
+// {16, 32, 64, 80, 112, 128, 256}.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int Sq,
                                      int Sk, int H, int KH, int hd,
@@ -259,6 +261,8 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    case 80: return launch<80>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    case 112: return launch<112>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     case 128: return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     case 256: return launch<256>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     default: return cudaErrorInvalidValue;

@@ -71,6 +71,16 @@
 //   * BN = 128 keys for hd <= 128 and 64 for hd 256 (shared memory at hd
 //     128: 224 KiB, at hd 256: 192 KiB; one CTA an SM).
 //   * O is written straight from the accumulator registers (bf16 pairs).
+//   * Head dims 80 and 112 (hubert-xlarge, zamba2-7b) run hd 128's kernel
+//     unchanged: shared-memory layout, swizzle, descriptors and wgmma
+//     shapes. Their tensor maps declare the true hd as dim 0, so TMA fills
+//     columns hd..127 of the second 64-column chunk with zeros: those add
+//     nothing to S = Q K^T and give zero columns of O, which the epilogue
+//     does not store (it writes hd columns at a row stride of hd). Rows of
+//     160 and 224 bytes meet TMA's 16-byte stride rule. The cost is the
+//     padded tensor work, 128/hd: 1.6x at hd 80, 1.14x at hd 112. No swizzle
+//     spans the 16 or 48 columns left over, and exact chunks would need
+//     their own swizzles and descriptors.
 //
 // C interface: repro_flash_attention_sm90(...) returns a cudaError_t (the
 // launch's cudaGetLastError(), or cudaErrorInvalidValue for a shape or a
@@ -378,7 +388,9 @@ __device__ __forceinline__ void wgmma_qk(float (&d)[BN / 2], uint64_t da,
   else wgmma_ss_n128(d, da, db, accumulate);
 }
 
-template <int HD>
+// HD: the head dim of the layout (shared memory, wgmma); HDT <= HD: the
+// tensors' head dim, the columns stored.
+template <int HD, int HDT>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
@@ -597,9 +609,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
       lh += __shfl_xor_sync(0xffffffffu, lh, 2);
       if (!valid[h]) continue;
       const float inv = 1.f / fmaxf(lh, 1e-30f);
-      __nv_bfloat16* row = o + (((size_t)b * Sq + qpos[h]) * H + head[h]) * HD;
+      __nv_bfloat16* row = o + (((size_t)b * Sq + qpos[h]) * H + head[h]) * HDT;
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < HDT / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(row + j * 8 + 2 * (lane % 4)) =
             __floats2bfloat162_rn(acc[4 * j + 2 * h] * inv,
                                   acc[4 * j + 2 * h + 1] * inv);
@@ -635,7 +647,9 @@ EncodeTiled encode_tiled() {
 }
 
 // A 4-D map over a (B, S, heads, hd) bf16 tensor, innermost first, whose
-// box is (dc, box_heads, box_seq, 1).
+// box is (dc, box_heads, box_seq, 1). Elements of a box past the tensor
+// (columns past hd, positions past seq) are filled with zeros, and count
+// toward the barrier's bytes like the rest of the box.
 bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
               int batch, int dc, int box_heads, int box_seq) {
   EncodeTiled encode = encode_tiled();
@@ -659,23 +673,24 @@ bool make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int seq,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+// HD: the layout's head dim; HDT: the tensors' (the tensor maps' dim 0).
+template <int HD, int HDT = HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Sk, int H, int KH, int causal,
                    float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   const int G = H / KH, TQ = kRows / G;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, HD, H, Sq, B, C::DC, G, TQ) ||
-      !make_map(&tk, k, HD, KH, Sk, B, C::DC, 1, C::BN) ||
-      !make_map(&tv, v, HD, KH, Sk, B, C::DC, 1, C::BN))
+  if (!make_map(&tq, q, HDT, H, Sq, B, C::DC, G, TQ) ||
+      !make_map(&tk, k, HDT, KH, Sk, B, C::DC, 1, C::BN) ||
+      !make_map(&tv, v, HDT, KH, Sk, B, C::DC, 1, C::BN))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_sm90<HD, HDT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + TQ - 1) / TQ, KH, B);
-  flash_fwd_sm90<HD><<<grid, kThreads, C::SMEM, stream>>>(
+  flash_fwd_sm90<HD, HDT><<<grid, kThreads, C::SMEM, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, G, TQ, causal,
       scale * kLog2e);
   return cudaGetLastError();
@@ -684,7 +699,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // bf16 only. The wrapper has checked shapes, contiguity, 16-byte aligned
-// pointers, H % KH == 0, G = H / KH <= 64 and hd in {16, 32, 64, 128, 256}.
+// pointers, H % KH == 0, G = H / KH <= 64 and hd in {16, 32, 64, 80, 112,
+// 128, 256}.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
                                           const void* v, void* o, int B,
                                           int Sq, int Sk, int H, int KH,
@@ -697,6 +713,10 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
     case 16: return launch<16>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     case 32: return launch<32>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     case 64: return launch<64>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    case 80:
+      return launch<128, 80>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
+    case 112:
+      return launch<128, 112>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     case 128:
       return launch<128>(q, k, v, o, B, Sq, Sk, H, KH, causal, scale, s);
     case 256:

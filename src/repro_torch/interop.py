@@ -13,10 +13,13 @@ grid. Both cross as plain data, so the port never imports ``repro`` or
   same bits.
 
 An LM's state is its parameter tree. :func:`lm_params_from_jax` takes a
-JAX LM's tree (``DecoderLM`` or ``MambaLM``) as numpy arrays (the stacked
-``layers`` leaves with their leading ``n_layers`` axis, plus
-``embedding`` and ``ln_f``) and loads it into the port's model for the
-config's family; both store f32, so the load is exact.
+JAX LM's tree (``DecoderLM``, ``MambaLM`` or ``HybridLM``) as numpy
+arrays and loads it into the port's model for the config's family: the
+stacked ``layers`` leaves with their leading ``n_layers`` axis, or a
+hybrid's ``groups`` leaves stacked ``(n_groups, period, ...)`` and
+``tail`` leaves ``(n_tail, ...)``, plus the unstacked rest (``embedding``,
+``ln_f``, the hybrid's ``shared_*``). Both store f32, so the load is
+exact.
 :func:`load_params` loads one module from a nested dict.
 """
 from __future__ import annotations
@@ -87,16 +90,30 @@ def load_params(module: torch.nn.Module, tree: dict) -> torch.nn.Module:
     return _load_flat(module, dict(_flatten(tree)))
 
 
+def _stacked_axes(cfg) -> dict:
+    """The JAX tree's stacked subtrees for ``cfg``: key -> (names of the
+    leading axes, their lengths)."""
+    if cfg.family == "hybrid":
+        period = cfg.hybrid_period
+        return {"groups": ("(n_groups, hybrid_period)",
+                           (cfg.n_layers // period, period)),
+                "tail": ("n_tail", (cfg.n_layers % period,))}
+    return {"layers": ("n_layers", (cfg.n_layers,))}
+
+
 def lm_params_from_jax(params: dict, cfg, *, device="cuda"):
     """The port's model for ``cfg`` holding the JAX parameter tree
-    ``params`` (numpy leaves; ``layers`` leaves stacked over layers)."""
+    ``params`` (numpy leaves; stacked subtrees as the module note says)."""
     from repro_torch.models.registry import build_model
+    stacked = _stacked_axes(cfg)
     flat = dict(_flatten({k: v for k, v in params.items()
-                          if k != "layers"}))
-    for name, arr in _flatten(params["layers"]):
-        if len(arr) != cfg.n_layers:
-            raise ValueError(f"layers.{name}: leading axis {len(arr)} != "
-                             f"n_layers {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            flat[f"layers.{i}.{name}"] = arr[i]
+                          if k not in stacked}))
+    for key, (what, lead) in stacked.items():
+        for name, arr in _flatten(params.get(key, {})):
+            if tuple(arr.shape[:len(lead)]) != lead:
+                raise ValueError(f"{key}.{name}: leading axes "
+                                 f"{tuple(arr.shape[:len(lead)])} != {what} "
+                                 f"{lead}")
+            for idx in np.ndindex(*lead):
+                flat[".".join((key, *map(str, idx), name))] = arr[idx]
     return _load_flat(build_model(cfg, device=require_device(device)), flat)

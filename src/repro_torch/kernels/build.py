@@ -50,21 +50,22 @@ def _nvcc() -> str:
                            "the CUDA kernels are built on first launch")
 
 
-def _target(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
+def _target(name: str, csrc: pathlib.Path) -> pathlib.Path:
+    src = csrc / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"lib{name}-{digest}.so"
 
 
-def _start(name: str) -> tuple[pathlib.Path, subprocess.Popen | None]:
+def _start(name: str, csrc: pathlib.Path = CSRC
+           ) -> tuple[pathlib.Path, subprocess.Popen | None]:
     """Start nvcc for ``name`` unless its library is already built."""
-    out = _target(name)
+    out = _target(name, csrc)
     if out.exists():
         return out, None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
 
@@ -89,13 +90,16 @@ def build_all() -> dict[str, pathlib.Path]:
     return {name: out for name, (out, _) in started.items()}
 
 
-def load(name: str = "stencil") -> ctypes.CDLL:
-    """The loaded library for ``name``, built first if needed."""
-    lib = _LIBS.get(name)
+def load(name: str = "stencil", csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
+    """The loaded library for ``name``, built first if needed. ``csrc`` is
+    the source directory: another checkout's, to compare two versions of a
+    kernel (its library is named by its own source's hash)."""
+    key = name if csrc == CSRC else f"{name}@{csrc}"
+    lib = _LIBS.get(key)
     if lib is None:
-        out, proc = _start(name)
+        out, proc = _start(name, csrc)
         _finish(name, out, proc)
-        lib = _LIBS[name] = _bind(name, ctypes.CDLL(str(out)))
+        lib = _LIBS[key] = _bind(name, ctypes.CDLL(str(out)))
     return lib
 
 

@@ -14,7 +14,8 @@ The kernel is chosen by dtype, a rule and not a fallback:
   16 bits: one bf16 P moved the qwen2.5-3b prefill logits out of their
   serving gate); the running max, the sum (of the f32 P) and the
   accumulator in f32; one rounding of ``acc / max(l, 1e-30)`` to bf16.
-  128-key tiles (64 at hd 256). A bf16 input it does not take raises.
+  128-key tiles (64 at hd 256); hd 80 and 112 padded to 128 with zeros
+  inside the kernel. A bf16 input it does not take raises.
 * **float32** goes to ``repro_torch/csrc/flash_attention.cu``, on the CUDA
   cores, everything in f32 (P included), 64-key tiles: full f32 has no
   tensor-core product, and TF32 would miss the f32 gate of 2e-5.
@@ -45,8 +46,9 @@ LAUNCHES: dict[str, int] = {"flash_attention": 0,
                              "flash_attention_wgmma": 0}
 
 #: Head dims both kernels are instantiated for, and their largest GQA
-#: group.
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: group. The tensor-core kernel runs hd 80 and 112 in hd 128's layout,
+#: the columns past hd filled with zeros by its loads.
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 MAX_GROUP = 64
 
 _DTYPES = (torch.float32, torch.bfloat16)

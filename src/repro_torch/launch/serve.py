@@ -6,9 +6,10 @@ fails. Weights are random, made from ``--seed``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \\
       --smoke --device cpu --requests 8 --prompt-len 16 --max-new 24
 
-``--arch mamba2-2.7b`` serves the SSM family the same way; its prompt
-length must be a multiple of ``ssm_chunk`` (16 at smoke size, 256 at
-full size) or shorter than it.
+``--arch mamba2-2.7b`` serves the SSM family the same way, and ``--arch
+zamba2-7b`` the hybrid (Mamba2 layers behind a shared attention block);
+their prompt length must be a multiple of ``ssm_chunk`` (16 at smoke
+size, 256 at full size) or shorter than it.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Model factory + parameter accounting (twin of ``repro.models.registry``).
 
-The port builds the dense and SSM families; :func:`count_params` counts
+The port builds the dense, SSM and hybrid families; :func:`count_params` counts
 any config the port builds, from its parameter shapes (a model made on the
 ``meta`` device holds shapes and no storage).
 """
@@ -19,9 +19,12 @@ def build_model(cfg: ModelConfig, *, device="cuda",
     if cfg.family == "ssm":
         from repro_torch.models.ssm_lm import MambaLM
         return MambaLM(cfg, device=device, generator=generator)
-    if cfg.family in ("hybrid", "encoder"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP Queue 1)")
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import HybridLM
+        return HybridLM(cfg, device=device, generator=generator)
+    if cfg.family == "encoder":
+        raise NotImplementedError("family 'encoder' is not ported yet "
+                                  "(ROADMAP Queue 1, D3)")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

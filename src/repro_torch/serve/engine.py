@@ -2,8 +2,8 @@
 
 ``ServeEngine`` serves requests in waves of ``batch_size``: each wave's
 prompts are left-padded with token 0 to the longest, prefilled into a
-fresh cache (a KV cache, or an SSM's state and conv tail; logits of the
-last position only), then decoded one token per step for every slot
+fresh cache (a KV cache, an SSM's state and conv tail, or a hybrid's
+both; logits of the last position only), then decoded one token per step for every slot
 until each request has ``max_new_tokens`` or has emitted ``eos_id``. The
 model updates the cache in place, which stands in for the reference's
 buffer donation. Pads are seen like any token (the reference has no pad
@@ -30,9 +30,9 @@ class Request:
 
 
 class ServeEngine:
-    """Waves of ``batch_size`` requests through ``model`` (a ``DecoderLM``
-    or a ``MambaLM``: any model with ``init_cache``, ``forward`` and
-    ``device``).
+    """Waves of ``batch_size`` requests through ``model`` (a ``DecoderLM``,
+    ``MambaLM`` or ``HybridLM``: any model with ``init_cache``, ``forward``
+    and ``device``).
 
     Sampling draws from ``generator`` (on the model's device); by default
     one seeded with ``rng_seed``.

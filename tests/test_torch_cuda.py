@@ -105,7 +105,10 @@ FLASH_SHAPES = [(2, 128, 4, 2, 32, True), (1, 256, 8, 8, 16, True),
                 (2, 128, 4, 1, 32, False), (1, 64, 2, 2, 64, True),
                 (1, 192, 6, 2, 128, True), (2, 96, 3, 3, 256, True),
                 (1, 128, 12, 4, 64, True), (4, 2048, 16, 2, 128, True),
-                (2, 300, 16, 2, 128, True), (1, 130, 5, 1, 32, False)]
+                (2, 300, 16, 2, 128, True), (1, 130, 5, 1, 32, False),
+                (4, 2048, 32, 32, 112, True), (2, 300, 32, 32, 112, True),
+                (1, 256, 8, 4, 112, True), (4, 2048, 16, 16, 80, False),
+                (1, 300, 6, 3, 80, True)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
@@ -119,8 +122,10 @@ def _qkv(b, s, h, kh, hd, dtype, dev, seed=0):
 @pytest.mark.parametrize("b,s,h,kh,hd,causal", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
     """Covers GQA groups 1-8, groups of 3 and 5 (a partial row tile), hd
-    16 to 256, the serving prefill's shape, and lengths that are not a
-    multiple of the key tile (64 keys in f32, 128 in bf16, 64 at hd 256).
+    16 to 256, the serving prefills' shapes (qwen2.5-3b's at hd 128,
+    zamba2-7b's at hd 112) and hubert-xlarge's heads (hd 80, non-causal),
+    and lengths that are not a multiple of the key tile (64 keys in f32,
+    128 in bf16, 64 at hd 256).
     bf16 goes through the tensor-core kernel, f32 through the CUDA-core
     one."""
     from repro_torch.kernels import flash_attention as TF
@@ -206,6 +211,38 @@ def test_smoke_lm_serves_through_the_flash_kernel(cuda):
     done = ServeEngine(model, batch_size=2, max_len=72).generate(reqs)
     assert TF.LAUNCHES["flash_attention"] == cfg.n_layers
     assert TF.LAUNCHES["flash_attention_wgmma"] == cfg.n_layers  # bf16
+    assert all(len(r.generated) == 4 for r in done)
+
+
+def test_smoke_hybrid_at_hd_112_serves_through_k8_and_k7(cuda):
+    """A zamba2 smoke model widened to head dim 112: a 32-token prefill
+    runs the shared block through K8 (bf16: the tensor-core kernel) at
+    each of its two applications and every mamba layer's conv through
+    K7."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import conv1d as TK
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    cfg = dataclasses.replace(configs.get_smoke_config("zamba2-7b"),
+                              head_dim=112, attn_chunk=16, attn_impl="flash",
+                              ssm_conv_impl="pallas")
+    model = build_model(cfg, device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, 512, 32, dtype=np.int32),
+                    max_new_tokens=4) for _ in range(2)]
+    TF.reset_launch_counts()
+    TK.reset_launch_counts()
+    done = ServeEngine(model, batch_size=2, max_len=40).generate(reqs)
+    groups = cfg.n_layers // cfg.hybrid_period
+    assert TF.LAUNCHES == {"flash_attention": groups,
+                           "flash_attention_wgmma": groups}
+    assert TK.LAUNCHES["conv1d"] == cfg.n_layers
     assert all(len(r.generated) == 4 for r in done)
 
 

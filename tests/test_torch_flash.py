@@ -17,8 +17,12 @@ from repro_torch.kernels import ops as TOPS
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# The JAX package's test shapes, then head dims 112 (zamba2-7b: causal,
+# G = 1, and a GQA group of 2) and 80 (hubert-xlarge: non-causal).
 SHAPES = [(2, 128, 4, 2, 32, True), (1, 256, 8, 8, 16, True),
-          (2, 128, 4, 1, 32, False), (1, 64, 2, 2, 64, True)]
+          (2, 128, 4, 1, 32, False), (1, 64, 2, 2, 64, True),
+          (1, 128, 4, 4, 112, True), (1, 128, 4, 2, 112, False),
+          (2, 128, 4, 4, 80, False), (1, 64, 4, 2, 80, True)]
 
 
 def _inputs(b, s, h, kh, hd, seed=0):
