@@ -11,12 +11,19 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    against its plain PyTorch version on the card at 1026 x 9218 (the
    paper's 1024 x 9216 domain with its ring), for the 5-point, 9-point and
    a radius-2 spec, in f32 and bf16, K1 with and without a pin mask: all
-   bit for bit. Time each kernel, its plain version and, for one sweep,
-   ``torch.nn.functional.conv2d`` as a yardstick (TF32 off);
+   bit for bit, each K1 call on its spec's compiled geometry. Time each
+   kernel, its plain version and, for one sweep,
+   ``torch.nn.functional.conv2d`` as a yardstick (TF32 off). Every K1 case
+   is timed beside the general K1 on the same work at its old tile (the
+   parent's kernel) and two bounds: the f32 operations at the published
+   peak, and at half of it (each multiply and add issued alone, as bit for
+   bit requires). K4 is timed alone on pre-made tap views and as the whole
+   policy call (the views' copies too), each beside its own traffic bound;
 4. the main path, ``engine.run(make_laplace_problem(1024, 9216),
    policy="auto", iters=1003)`` in bf16 and f32: the schedule must be 125
    temporal blocks of t=8 plus 3 rowchunk sweeps, the launch counters must
-   show 125 K1 and 3 K2 launches, the result must equal the same schedule
+   show 125 K1 and 3 K2 launches, all 125 K1 launches on the compiled
+   jacobi5 kernel, the result must equal the same schedule
    of plain functions bit for bit and be within f32 1e-4 / bf16 5e-2 of
    the reference policy run in f32 from the same start (the bf16 reference
    rounds after every sweep and drifts from the f32 solve; its drift is
@@ -74,7 +81,8 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     versions, bit for bit, at the JAX test shapes (odd blocks, widths 258
     and 1026, a ragged last block) and at the table shapes, in every dtype
     their tables use plus bf16; each timed at its main table shape beside
-    its bound and, for the copies, ``Tensor.copy_`` (a yardstick only).
+    its bound and, for the copies, ``Tensor.copy_`` (a yardstick only);
+    K5a's split of a tile over blocks at bn 4096 is printed.
     Then ``launch.access`` runs Tables II–VI on the card at the paper's
     sizes with the launch counters zeroed just before: every measured row
     must read ``us_per_call > 0`` and all five kernels must have launched;
@@ -241,15 +249,29 @@ def grid(spec: StencilSpec, dtype, seed: int) -> torch.Tensor:
 
 
 def bound_ms(policy: str, spec: StencilSpec, u: torch.Tensor, t: int,
-             peaks) -> tuple[float, str]:
+             peaks, unfused: bool = False) -> tuple[float, str]:
     """Least time for the function: each input byte read once and each
-    output byte written once, against the f32 operations it must do."""
-    bw, flops = peaks.bw, peaks.f32
+    output byte written once, against the f32 operations it must do at
+    the published peak, which counts a fused multiply-add as two; with
+    ``unfused`` at half that rate, since the kernels must issue each
+    multiply and add alone to stay bit for bit (no contraction)."""
+    bw, flops = peaks.bw, peaks.f32 / (2 if unfused else 1)
     r = spec.radius
     hi, wi = u.shape[-2] - 2 * r, u.shape[-1] - 2 * r
     nbytes = u.numel() * u.element_size() + hi * wi * u.element_size()
     ops = (2 * spec.taps - 1) * hi * wi * (t if policy == "temporal" else 1)
     b_ms, o_ms = nbytes / bw * 1e3, ops / flops * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
+
+
+def shifted_kernel_bound_ms(spec: StencilSpec, u: torch.Tensor,
+                            peaks) -> tuple[float, str]:
+    """Least time for K4's own function on its pre-made operands: the taps'
+    interior planes read once and the interior written once."""
+    r = spec.radius
+    plane = (u.shape[-2] - 2 * r) * (u.shape[-1] - 2 * r)
+    b_ms = (spec.taps + 1) * plane * u.element_size() / peaks.bw * 1e3
+    o_ms = (2 * spec.taps - 1) * plane / peaks.f32 * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
@@ -264,10 +286,29 @@ def conv_yardstick(spec: StencilSpec, u: torch.Tensor):
     return lambda: torch.nn.functional.conv2d(x, w)
 
 
+def general_k1(spec: StencilSpec, u: torch.Tensor, mask):
+    """The general K1 (the parent's kernel, unchanged) at its old default
+    tile, on the same work: the spec's taps in reverse order match no
+    compiled geometry. Checked bit for bit against its plain version."""
+    rev = StencilSpec(spec.offsets[::-1], spec.weights[::-1])
+    plan = engine.plan_for(u.shape, u.dtype, rev, "temporal", t=T, bm=32,
+                           bn=128, masked=mask is not None)
+    before = engine.TEMPORAL_VARIANTS["general"]
+    out = engine.policies.launch(plan, u, mask=mask)
+    want = engine.stencil_temporal_plain(u, rev, t=T, mask=mask)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want) and engine.TEMPORAL_VARIANTS["general"]
+          == before + 1, "the general K1 != its plain version")
+    return device_ms(lambda: engine.policies.launch(plan, u, out=out,
+                                                    mask=mask))
+
+
 def phase_kernels(peaks, stats) -> None:
     print("== phase 3: kernels vs plain versions, bit for bit, "
           f"{NY + 2}x{NX + 2} ==")
     for spec_name, spec in SPECS.items():
+        variant = engine.plan.temporal_variant(spec)
+        check(variant == spec_name, f"{spec_name} runs K1 {variant}")
         for dname, dtype in DTYPES.items():
             u = grid(spec, dtype, seed=len(spec_name))
             out = torch.empty_like(u)
@@ -277,7 +318,10 @@ def phase_kernels(peaks, stats) -> None:
             cases += [("temporal", {"t": T}), ("temporal", {"t": T,
                                                            "mask": mask})]
             for policy, kw in cases:
+                before = dict(engine.TEMPORAL_VARIANTS)
                 got = getattr(engine, f"stencil_{policy}")(u, spec, **kw)
+                ran = {k: n - before[k]
+                       for k, n in engine.TEMPORAL_VARIANTS.items()}
                 want = getattr(engine, f"stencil_{policy}_plain")(u, spec,
                                                                   **kw)
                 torch.cuda.synchronize()
@@ -285,9 +329,15 @@ def phase_kernels(peaks, stats) -> None:
                 label = policy + (" masked" if "mask" in kw else "")
                 check(torch.equal(got, want),
                       f"{label} {spec_name} {dname}: max |err| {err}")
+                if policy == "temporal":
+                    check(ran == {k: int(k == variant) for k in ran},
+                          f"{label} {spec_name} {dname} ran K1 {ran}")
                 s = stats.setdefault(policy, {"max_abs_err": 0.0})
                 s["max_abs_err"] = max(s["max_abs_err"], err)
-                if spec_name != "jacobi5" or "mask" in kw:
+                if policy == "temporal":
+                    time_k1(spec_name, spec, dname, u, out, kw, peaks, s)
+                    continue
+                if spec_name != "jacobi5":
                     print(f"{label:16s} {spec_name:9s} {dname:8s} bitwise")
                     continue
                 fn = getattr(engine, f"stencil_{policy}")
@@ -295,15 +345,71 @@ def phase_kernels(peaks, stats) -> None:
                 k_ms = device_ms(lambda: fn(u, spec, out=out, **kw))
                 p_ms = device_ms(lambda: plain(u, spec, **kw), reps=3,
                                  inner=3)
-                lib_ms = None if policy == "temporal" else device_ms(
-                    conv_yardstick(spec, u))
-                b_ms, b_by = bound_ms(policy, spec, u, kw.get("t", 1), peaks)
+                lib_ms = device_ms(conv_yardstick(spec, u))
+                b_ms, b_by = bound_ms(policy, spec, u, 1, peaks)
+                if policy == "shifted":
+                    time_k4(spec, dname, u, out, k_ms, p_ms, lib_ms, b_ms,
+                            peaks, s)
+                    continue
                 print(f"{label:16s} {spec_name:9s} {dname:8s} bitwise  "
                       f"kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
                       f"bound_ms={b_ms:.6f} ({b_by}) library_ms="
-                      f"{'null' if lib_ms is None else f'{lib_ms:.6f}'}")
+                      f"{lib_ms:.6f}")
                 s[dname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                             "bound_by": b_by, "library_ms": lib_ms}
+
+
+def time_k1(spec_name, spec, dname, u, out, kw, peaks, s) -> None:
+    """K1 on this (spec, dtype, mask): its compiled kernel, the general
+    kernel on the same work, and both bounds; the plain version for
+    jacobi5 unmasked, the row the kernels line reports."""
+    mask = kw.get("mask")
+    k_ms = device_ms(lambda: engine.stencil_temporal(u, spec, out=out,
+                                                     **kw))
+    g_ms = general_k1(spec, u, mask)
+    b_ms, b_by = bound_ms("temporal", spec, u, T, peaks)
+    nc_ms, nc_by = bound_ms("temporal", spec, u, T, peaks, unfused=True)
+    label = "temporal" + (" masked" if mask is not None else "")
+    row = {"ms": k_ms, "general_ms": g_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bound_nc_ms": nc_ms, "bound_nc_by": nc_by}
+    s.setdefault("cases", {})[f"{spec_name} {dname}"
+                              + (" masked" if mask is not None else "")] = row
+    extra = ""
+    if spec_name == "jacobi5" and mask is None:
+        p_ms = device_ms(lambda: engine.stencil_temporal_plain(u, spec,
+                                                               **kw),
+                         reps=3, inner=3)
+        s[dname] = dict(row, plain_ms=p_ms, library_ms=None)
+        extra = f" plain_ms={p_ms:.6f}"
+    print(f"{label:16s} {spec_name:9s} {dname:8s} bitwise  K1 {spec_name} "
+          f"kernel_ms={k_ms:.6f} general_ms={g_ms:.6f} (the general K1 at "
+          f"32x128){extra} bound_ms={b_ms:.6f} ({b_by}) "
+          f"bound_nc_ms={nc_ms:.6f} ({nc_by}, no contraction)")
+
+
+def time_k4(spec, dname, u, out, policy_ms, p_ms, lib_ms, policy_b_ms,
+            peaks, s) -> None:
+    """K4 alone on pre-made tap views, beside the whole policy call (the
+    views' copies and the kernel) and each one's traffic bound."""
+    plan = engine.plan_for(u.shape, u.dtype, spec, "shifted")
+    views = engine.shifted_views(u, spec)
+    got = engine.launch_shifted_views(plan, views, out)
+    torch.cuda.synchronize()
+    check(torch.equal(got, engine.stencil_shifted_plain(u, spec)),
+          "K4 on pre-made views != its plain version")
+    k_ms = device_ms(lambda: engine.launch_shifted_views(plan, views, out))
+    b_ms, b_by = shifted_kernel_bound_ms(spec, u, peaks)
+    print(f"{'shifted':16s} {'jacobi5':9s} {dname:8s} bitwise  "
+          f"kernel_ms={k_ms:.6f} (views pre-made) bound_ms={b_ms:.6f} "
+          f"({b_by}: {spec.taps} tap planes read, 1 written) library_ms=null "
+          f"(no one call sums separate planes); policy_ms={policy_ms:.6f} "
+          f"(copies + kernel) policy_bound_ms={policy_b_ms:.6f} (grid read "
+          f"once, interior written once) conv2d_ms={lib_ms:.6f} (the policy "
+          f"call's yardstick) plain_ms={p_ms:.6f}")
+    s[dname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None,
+                "policy_ms": policy_ms, "policy_bound_ms": policy_b_ms,
+                "policy_library_ms": lib_ms}
 
 
 def plain_schedule(u: torch.Tensor, spec: StencilSpec, sched) -> torch.Tensor:
@@ -343,9 +449,13 @@ def phase_main(smi: str, stats) -> None:
         out, counts = counted(lambda: engine.run(u0, policy="auto",
                                                  iters=ITERS))
         wall = time.perf_counter() - t0
-        print(f"[{dname}] launches: {counts}")
+        variants = dict(engine.TEMPORAL_VARIANTS)
+        print(f"[{dname}] launches: {counts}; K1 kernels: {variants}")
         check(counts == {"shifted": 0, "rowchunk": 3, "dbuf": 0,
                          "temporal": 125}, f"launch counts {counts}")
+        check(variants == {"jacobi5": 125, "laplace9": 0, "radius2": 0,
+                           "general": 0},
+              f"all 125 K1 launches must be the jacobi5 kernel: {variants}")
         if dname == "bfloat16":
             stats["temporal"].update(launches=counts["temporal"],
                                      path="engine.run(auto, iters=1003)")
@@ -983,6 +1093,11 @@ def phase_stream(peaks, stats) -> None:
               f"kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
               f"bound_ms={s['bound_ms']:.6f} ({s['bound_by']}){extra} "
               f"copy_ms={'null' if lib_ms is None else f'{lib_ms:.6f}'}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = stream.copy_split(side, side, 256, side, sms)
+    stats["stream_copy"]["split"] = split
+    print(f"K5a at bm=256 bn={side}: {side // 256} tiles on {sms} SMs, "
+          f"each split over {split} blocks ({side // 256 * split} blocks)")
     del ramp, grid, mains
 
     stream.reset_launch_counts()
@@ -1039,7 +1154,8 @@ def main() -> None:
             "replaces": replaces, "launches": s["launches"],
             "path": s["path"], "max_abs_err": s["max_abs_err"],
             "dtype": "bfloat16", **s["bfloat16"],
-            "float32": s["float32"]})
+            "float32": s["float32"],
+            **({"cases": s["cases"]} if "cases" in s else {})})
     kid, replaces = FLASH
     s = stats["flash"]
     kernels.append({
@@ -1072,8 +1188,7 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"], "shape": shape,
             **{k: s[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            **({"traffic_ms": s["traffic_ms"]} if "traffic_ms" in s
-               else {})})
+            **{k: s[k] for k in ("traffic_ms", "split") if k in s}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

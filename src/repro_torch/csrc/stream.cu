@@ -86,6 +86,14 @@ __host__ __device__ __forceinline__ bool aligned16(const void* p) {
 // row takes 16-byte vectors where its start and bn * sizeof allow, else
 // elements (Table VI's widths 1026 and 514 put every other row start 8
 // bytes off 16). Each lane keeps four loads in flight before it stores.
+// When the tiles alone would leave SMs idle (4096^2 int32 at bm 256 and
+// bn 4096 is 16 tiles on 132 SMs), the wrapper splits each tile's rows
+// over `split` blocks (kernels/stream.py::copy_split); each block copies a
+// contiguous run of the tile's rows, each row still one bn-element span,
+// and has only the threads its rows need. A split of 1 is one block a
+// tile, as the TPU's grid has it. At bn 4096 the split copy runs at about
+// 1.07x Tensor.copy_ on an H100: a lane still walks its row's 16 KB span
+// in eight rounds, where a one-shot flat copy reaches copy_ (PERF.md).
 
 template <typename U>
 __device__ __forceinline__ void copy_units(const U* __restrict__ s,
@@ -107,12 +115,19 @@ __device__ __forceinline__ void copy_units(const U* __restrict__ s,
 template <typename E>
 __global__ void __launch_bounds__(COPY_THREADS)
     stream_copy_kernel(const E* __restrict__ x, E* __restrict__ out, int w,
-                       int bm, int bn, int tiles_w, int g) {
-  const int ti = blockIdx.x / tiles_w, tj = blockIdx.x % tiles_w;
+                       int bm, int bn, int tiles_w, int g, int split) {
+  int tile = blockIdx.x, r_begin = 0, r_end = bm;
+  if (split > 1) {  // this block's run of the tile's rows
+    const int part = blockIdx.x % split;
+    tile = blockIdx.x / split;
+    r_begin = part * bm / split;
+    r_end = (part + 1) * bm / split;
+  }
+  const int ti = tile / tiles_w, tj = tile % tiles_w;
   const int grp = threadIdx.x / g, lane = threadIdx.x % g;
   const int groups = blockDim.x / g;
   const bool vec_bn = (bn * sizeof(E)) % 16 == 0;
-  for (int r = grp; r < bm; r += groups) {
+  for (int r = r_begin + grp; r < r_end; r += groups) {
     const size_t off = static_cast<size_t>(ti * bm + r) * w +
                        static_cast<size_t>(tj) * bn;
     const E* s = x + off;
@@ -421,22 +436,28 @@ static cudaError_t opt_in_smem(K* kernel, size_t bytes) {
 
 extern "C" cudaError_t repro_stream_copy(const void* x, void* out, int esize,
                                          int h, int w, int bm, int bn,
-                                         int g, void* stream) {
+                                         int g, int split, void* stream) {
   if (h < 1 || w < 1 || bm < 1 || bn < 1 || h % bm || w % bn || g < 1 ||
-      g > 32 || (g & (g - 1))) {
+      g > 32 || (g & (g - 1)) || split < 1 || split > bm) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int tiles_w = w / bn;
-  const unsigned blocks = static_cast<unsigned>((h / bm) * tiles_w);
+  const long long blocks = static_cast<long long>(h / bm) * tiles_w * split;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  // A block of `split` > 1 holds only its run's rows: one group a row.
+  const int rows = (bm + split - 1) / split;
+  const int threads = min(COPY_THREADS, (rows * g + 31) / 32 * 32);
   if (esize == 4) {
-    stream_copy_kernel<uint32_t><<<blocks, COPY_THREADS, 0, s>>>(
-        static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), w, bm,
-        bn, tiles_w, g);
+    stream_copy_kernel<uint32_t>
+        <<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+            static_cast<const uint32_t*>(x), static_cast<uint32_t*>(out), w,
+            bm, bn, tiles_w, g, split);
   } else if (esize == 2) {
-    stream_copy_kernel<uint16_t><<<blocks, COPY_THREADS, 0, s>>>(
-        static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), w, bm,
-        bn, tiles_w, g);
+    stream_copy_kernel<uint16_t>
+        <<<static_cast<unsigned>(blocks), threads, 0, s>>>(
+            static_cast<const uint16_t*>(x), static_cast<uint16_t*>(out), w,
+            bm, bn, tiles_w, g, split);
   } else {
     return cudaErrorInvalidValue;
   }

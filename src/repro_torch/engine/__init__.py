@@ -40,7 +40,10 @@ from repro_torch.engine.plan import (  # noqa: F401
 )
 from repro_torch.engine.policies import (  # noqa: F401
     LAUNCHES,
+    TEMPORAL_VARIANTS,
+    launch_shifted_views,
     reset_launch_counts,
+    shifted_views,
     stencil_dbuf,
     stencil_dbuf_plain,
     stencil_rowchunk,

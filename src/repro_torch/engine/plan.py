@@ -40,9 +40,22 @@ DEFAULT_T = 8      # temporal fusion depth (sweeps per HBM round-trip)
 #: (see PERF.md). ``shifted`` streams without a tile; its tile only counts
 #: blocks for ``auto``.
 GPU_TILES = {"shifted": (32, 128), "rowchunk": (16, 256),
-             "dbuf": (64, 256), "temporal": (32, 128)}
+             "dbuf": (64, 256), "temporal": (40, 112)}
 #: Most taps a CUDA kernel takes (the tap table is a kernel argument).
 MAX_TAPS = 32
+#: Tap geometries K1 is compiled for (``csrc/stencil.cu``: ``Jacobi5``,
+#: ``Laplace9``, ``Radius2``, in this order): offsets in tap order. A spec
+#: whose offsets equal one of these, in order, runs that compiled kernel;
+#: every other spec runs the general K1 (:func:`temporal_variant`).
+TEMPORAL_GEOMETRIES = {
+    "jacobi5": ((-1, 0), (1, 0), (0, -1), (0, 1)),
+    "laplace9": ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1),
+                 (1, 0), (1, 1)),
+    "radius2": ((-2, 0), (-1, 0), (0, 0), (0, -2), (0, 1)),
+}
+#: f32 cells a row of the compiled K1's shared-memory tile holds (one warp
+#: of 4-column quads): its window, ``bn + 2·t·r``, must fit in it.
+TEMPORAL_ROW = 128
 
 
 class PlanError(ValueError):
@@ -93,13 +106,23 @@ def dbuf_pitch_words(bn: int, r: int, dtype_bytes: int) -> int:
     return -(-(bn + 2 * r + per_word - 1) // per_word)
 
 
+def temporal_variant(spec: StencilSpec) -> str:
+    """The K1 kernel that runs ``spec``: the compiled geometry whose
+    offsets equal ``spec.offsets`` in order, else ``"general"``."""
+    for name, offsets in TEMPORAL_GEOMETRIES.items():
+        if tuple(spec.offsets) == offsets:
+            return name
+    return "general"
+
+
 def smem_2d(policy: str, dtype_bytes: int, spec: StencilSpec, bm: int,
             bn: int, t: int, masked: bool = False) -> tuple[int, int]:
     """(halo, shared-memory bytes) of one 2-D tile of ``policy``.
 
     The bytes are the dynamic shared memory the CUDA launcher allocates:
     the f32 tile (rowchunk, and two of them for temporal) or two stages
-    in the grid dtype (dbuf).
+    in the grid dtype (dbuf). A compiled K1 geometry's two f32 tiles have
+    rows of :data:`TEMPORAL_ROW` cells whatever ``bn``.
     """
     r = spec.radius
     if policy == "shifted":
@@ -112,7 +135,9 @@ def smem_2d(policy: str, dtype_bytes: int, spec: StencilSpec, bm: int,
             bn, r, dtype_bytes) * 4
     if policy == "temporal":
         # Two f32 ping-pong tiles; a masked run adds one byte per cell.
-        cells = (bm + 2 * t * r) * (bn + 2 * t * r)
+        width = (TEMPORAL_ROW if temporal_variant(spec) != "general"
+                 else bn + 2 * t * r)
+        cells = (bm + 2 * t * r) * width
         return t * r, 8 * cells + (cells if masked else 0)
     raise PlanError(f"unknown policy {policy!r}")
 
@@ -242,6 +267,15 @@ def _plan_cached(shape: tuple[int, int], dtype: str, spec: StencilSpec,
             raise PlanError(f"spec has {spec.taps} taps; the CUDA kernels "
                             f"take at most {MAX_TAPS}")
         bm, bn = min(bm_req, hi), min(bn_req, wi)
+        if policy == "temporal" and temporal_variant(spec) != "general":
+            # The compiled K1's window spans at most one tile row.
+            bn = min(bn, TEMPORAL_ROW - 2 * t * r)
+            if bn < 1:
+                raise PlanError(
+                    f"policy 'temporal' for grid {shape} (t={t}) on "
+                    f"{device.name}: a {2 * t * r}-column halo leaves no "
+                    f"room in the compiled kernel's {TEMPORAL_ROW}-cell "
+                    f"tile row — lower t")
         halo, vmem = smem_2d(policy, dtype_bytes, spec, bm, bn, t, masked)
         win = bm + 2 * halo
         what = f"policy {policy!r} for grid {shape} (bm={bm}, bn={bn}, t={t})"
@@ -269,7 +303,8 @@ def plan_for(shape, dtype, spec: StencilSpec, policy: str, *,
     ``bm``/``bn``/``t`` are requests; the plan holds the realized values.
     Under the row-block rule ``bm`` snaps to the largest interior-row
     divisor and ``bn`` is the interior width; under the 2-D rule both are
-    clipped to the interior and default to :data:`GPU_TILES`. ``t`` is
+    clipped to the interior and default to :data:`GPU_TILES`; a compiled
+    K1 geometry also clips ``bn`` to ``TEMPORAL_ROW - 2·t·r``. ``t`` is
     forced to 1 for non-temporal policies. ``device`` is a registry name or
     model; None plans against :func:`~repro_torch.engine.device.detect`.
     """

@@ -12,7 +12,10 @@ the same f32 operations in the same order, so the two agree bit for bit.
       (K2).
   ``dbuf``      — rowchunk with a two-stage prefetching data mover (K3).
   ``temporal``  — ``t`` sweeps fused per round-trip through device memory,
-      with a ``t·r`` halo (K1).
+      with a ``t·r`` halo (K1). A spec whose offsets equal a compiled
+      geometry's in order (``plan.TEMPORAL_GEOMETRIES``) runs that
+      geometry's kernel, any other spec the general one;
+      :data:`TEMPORAL_VARIANTS` counts which.
 
 All grids are ringed ``(..., H, W)`` tensors; leading dimensions are a
 batch (one kernel launch, batch along ``gridDim.z``). Kernels accumulate
@@ -35,19 +38,28 @@ import torch
 
 from repro_torch.core.stencil import StencilSpec, f32, interior, tap_sum
 from repro_torch.engine.device import DeviceModel  # noqa: F401
-from repro_torch.engine.plan import (DEFAULT_T, ExecutionPlan, PlanError,
-                                     dbuf_pitch_words, plan_for)
+from repro_torch.engine.plan import (DEFAULT_T, TEMPORAL_GEOMETRIES,
+                                     ExecutionPlan, PlanError,
+                                     dbuf_pitch_words, plan_for,
+                                     temporal_variant)
 
 #: Kernel launches per policy since the last :func:`reset_launch_counts`.
 LAUNCHES: dict[str, int] = {"shifted": 0, "rowchunk": 0, "dbuf": 0,
                             "temporal": 0}
+#: K1 launches by kernel: each compiled geometry, and the general kernel.
+#: Their sum is ``LAUNCHES["temporal"]``.
+TEMPORAL_VARIANTS: dict[str, int] = {**{name: 0 for name in
+                                        TEMPORAL_GEOMETRIES}, "general": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: The launcher's geometry code: its place in TEMPORAL_GEOMETRIES.
+_GEOMETRY_CODE = {name: i for i, name in enumerate(TEMPORAL_GEOMETRIES)}
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, TEMPORAL_VARIANTS):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -197,20 +209,47 @@ def _sm_count(dev: torch.device) -> int:
 # Launchers: one per kernel, all driven by a 2-D tile plan
 # ---------------------------------------------------------------------------
 
-def _launch_shifted(plan: ExecutionPlan, u, out, mask) -> None:
+def shifted_views(u: torch.Tensor, spec: StencilSpec) -> list[torch.Tensor]:
+    """K4's operands: one shifted interior copy of ``u`` per tap, in tap
+    order, each materialized as a separate contiguous buffer (as XLA
+    materialized them): the paper's replicated-read traffic."""
+    r = spec.radius
+    h, w = u.shape[-2:]
+    return [u[..., r + dy:h - r + dy, r + dx:w - r + dx].contiguous()
+            for dy, dx in spec.offsets]
+
+
+def launch_shifted_views(plan: ExecutionPlan, views: list[torch.Tensor],
+                         out: torch.Tensor) -> torch.Tensor:
+    """Launch K4 alone on ``views`` (:func:`shifted_views` of the grid):
+    write their weighted sum into ``out``'s interior; return ``out``."""
     spec, r = plan.spec, plan.radius
-    b, h, w = _batch_hw(u)
     hi, wi = plan.interior_shape
-    # One shifted interior copy per tap, materialized as separate buffers
-    # (as XLA materialized them): the paper's replicated-read traffic.
-    views = [u[..., r + dy:h - r + dy, r + dx:w - r + dx].contiguous()
-             for dy, dx in spec.offsets]
+    if out.device.type != "cuda" or not out.is_contiguous():
+        raise ValueError("out must be a contiguous CUDA grid")
+    if (tuple(out.shape[-2:]) != plan.shape
+            or out.dtype != getattr(torch, plan.dtype)):
+        raise ValueError(f"plan is for {plan.shape} {plan.dtype}; out is "
+                         f"{tuple(out.shape)} {out.dtype}")
+    want = (*out.shape[:-2], hi, wi)
+    if len(views) != spec.taps or any(
+            tuple(v.shape) != want or v.dtype != out.dtype
+            or v.device != out.device or not v.is_contiguous()
+            for v in views):
+        raise ValueError(f"K4 takes {spec.taps} contiguous views of shape "
+                         f"{want} and out's dtype and device")
+    b, _, w = _batch_hw(out)
     n, _, _, wts = _tap_args(spec)
     ptrs = (ctypes.c_void_p * n)(*(v.data_ptr() for v in views))
-    blocks = min(-(-hi * wi // 256), 8 * _sm_count(u.device))
+    blocks = min(-(-hi * wi // 256), 8 * _sm_count(out.device))
     _checked("shifted", _lib().repro_shifted(
-        ptrs, out.data_ptr(), _DTYPE_CODE[u.dtype], b, hi, wi, w, r, blocks,
-        n, wts, _stream(u)))
+        ptrs, out.data_ptr(), _DTYPE_CODE[out.dtype], b, hi, wi, w, r,
+        blocks, n, wts, _stream(out)))
+    return out
+
+
+def _launch_shifted(plan: ExecutionPlan, u, out, mask) -> None:
+    launch_shifted_views(plan, shifted_views(u, plan.spec), out)
 
 
 def _launch_rowchunk(plan: ExecutionPlan, u, out, mask) -> None:
@@ -248,10 +287,20 @@ def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
         mask = mask.contiguous()
         mask_ptr = mask.data_ptr()
     n, dy, dx, wts = _tap_args(plan.spec)
-    _checked("temporal", _lib().repro_temporal(
-        u.data_ptr(), mask_ptr, out.data_ptr(), _DTYPE_CODE[u.dtype], b, h,
-        w, plan.radius, plan.t, plan.bm, plan.bn, plan.row_tiles,
-        plan.col_tiles, n, dy, dx, wts, plan.vmem_bytes, _stream(u)))
+    variant = temporal_variant(plan.spec)
+    if variant == "general":
+        err = _lib().repro_temporal(
+            u.data_ptr(), mask_ptr, out.data_ptr(), _DTYPE_CODE[u.dtype], b,
+            h, w, plan.radius, plan.t, plan.bm, plan.bn, plan.row_tiles,
+            plan.col_tiles, n, dy, dx, wts, plan.vmem_bytes, _stream(u))
+    else:
+        err = _lib().repro_temporal_geo(
+            u.data_ptr(), mask_ptr, out.data_ptr(), _GEOMETRY_CODE[variant],
+            _DTYPE_CODE[u.dtype], b, h, w, plan.radius, plan.t, plan.bm,
+            plan.bn, plan.row_tiles, plan.col_tiles, n, wts,
+            plan.vmem_bytes, _stream(u))
+    _checked("temporal", err)
+    TEMPORAL_VARIANTS[variant] += 1
 
 
 _LAUNCHERS = {"shifted": _launch_shifted, "rowchunk": _launch_rowchunk,

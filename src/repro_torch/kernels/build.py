@@ -116,6 +116,8 @@ SIGNATURES = {
                        I, P],
         "repro_temporal": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, IP, IP,
                            F, I, P],
+        "repro_temporal_geo": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
+                               F, I, P],
         "repro_shifted": [ctypes.POINTER(P), P, I, I, I, I, I, I, I, I, F,
                           P],
     },
@@ -130,7 +132,7 @@ SIGNATURES = {
         "repro_conv1d": [P, P, P, P, I, I, I, I, I, I, I, P],
     },
     "stream": {
-        "repro_stream_copy": [P, P, I, I, I, I, I, I, P],
+        "repro_stream_copy": [P, P, I, I, I, I, I, I, I, P],
         "repro_stream_rowdma": [P, P, I, I, I, I, I, I, P],
         "repro_stream_replicated": [P, P, I, I, I, I, I, P],
         "repro_dma_only": [P, P, I, I, I, I, P],

@@ -90,9 +90,18 @@ def stream_copy_plain(x: torch.Tensor, *, bm: int, bn: int) -> torch.Tensor:
     return x.clone()
 
 
+def copy_split(h: int, w: int, bm: int, bn: int, sms: int) -> int:
+    """Blocks K5a gives each (bm, bn) tile: as many as keep the grid at
+    about two blocks an SM on ``sms`` SMs without a third on any (1 once
+    the tiles alone fill that), never more than the tile's ``bm`` rows."""
+    tiles = (h // bm) * (w // bn)
+    return max(1, min(bm, 2 * sms // tiles))
+
+
 def stream_copy(x: torch.Tensor, *, bm: int, bn: int) -> torch.Tensor:
     """Blocked identity copy (K5a); block shape (bm, bn) sets the width of
-    each row's transaction."""
+    each row's transaction. A tile's rows may be split over several blocks
+    (:func:`copy_split`); each row stays one bn-element span."""
     _check(x, bm, bn)
     if _device(x) == "cpu":
         return stream_copy_plain(x, bm=bm, bn=bn)
@@ -101,8 +110,9 @@ def stream_copy(x: torch.Tensor, *, bm: int, bn: int) -> torch.Tensor:
     lanes = 1
     while lanes < min(units, 32):
         lanes *= 2
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return _launch("stream_copy", "repro_stream_copy", x, x.element_size(),
-                   h, w, bm, bn, lanes)
+                   h, w, bm, bn, lanes, copy_split(h, w, bm, bn, sms))
 
 
 def stream_copy_rowdma_plain(x: torch.Tensor, *, bm: int,

@@ -68,6 +68,101 @@ def test_temporal_mask_and_batch_bitwise(cuda, dtype):
     assert torch.equal(got[:, mask], u[:, mask])
 
 
+def _counts():
+    return dict(TE.LAUNCHES), dict(TE.TEMPORAL_VARIANTS)
+
+
+def _assert_one_k1(before, variant):
+    """Exactly one K1 launch since ``before``, and it ran ``variant``."""
+    launches, variants = _counts()
+    assert launches["temporal"] == before[0]["temporal"] + 1
+    assert {k: variants[k] - before[1][k] for k in variants} == {
+        k: int(k == variant) for k in variants}
+
+
+@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_temporal_geometry_equals_plain_bitwise(cuda, spec_name, shape, dtype,
+                                                t):
+    """Each compiled K1 geometry, on ragged shapes, at the default tile."""
+    spec = SPECS[spec_name]
+    u = _grid(shape, dtype, cuda, seed=4)
+    before = _counts()
+    got = TE.stencil_temporal(u, spec, t=t)
+    torch.cuda.synchronize()
+    _assert_one_k1(before, spec_name)
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=t))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_temporal_interior_and_edge_tiles_bitwise(cuda, spec_name, dtype):
+    """300 x 1100 at the default tile has blocks whose window meets no ring
+    (no pin test) beside edge blocks (the test), odd width included."""
+    spec = SPECS[spec_name]
+    u = _grid((300, 1101), dtype, cuda, seed=5)
+    plan = TE.plan_for(u.shape, u.dtype, spec, "temporal", t=8)
+    assert plan.row_tiles >= 3 and plan.col_tiles >= 3
+    before = _counts()
+    got = TE.stencil_temporal(u, spec, t=8)
+    torch.cuda.synchronize()
+    _assert_one_k1(before, spec_name)
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=8))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_temporal_geometry_batch_and_mask_bitwise(cuda, spec_name, dtype):
+    spec = SPECS[spec_name]
+    u = _grid((133, 259), dtype, cuda, seed=6, batch=3)
+    g = torch.Generator().manual_seed(7)
+    mask = (torch.rand(u.shape, generator=g) < 0.02).to(cuda)
+    mask[1, 40:60, 100:150] = True
+    before = _counts()
+    got = TE.stencil_temporal(u, spec, t=8, mask=mask)
+    torch.cuda.synchronize()
+    _assert_one_k1(before, spec_name)
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=8,
+                                                      mask=mask))
+    assert torch.equal(got[mask], u[mask])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_temporal_other_tap_order_takes_the_general_kernel(cuda, dtype):
+    """jacobi5's offsets in another order match no compiled geometry."""
+    j5 = SPECS["jacobi5"]
+    spec = TS.StencilSpec(j5.offsets[::-1], (0.1, 0.2, 0.3, 0.4))
+    u = _grid((70, 300), dtype, cuda, seed=8)
+    before = _counts()
+    got = TE.stencil_temporal(u, spec, t=8)
+    torch.cuda.synchronize()
+    _assert_one_k1(before, "general")
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=8))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_shifted_views_launch_equals_the_policy_call(cuda, spec_name, dtype):
+    """K4 launched alone on the wrapper's own views gives the policy
+    call's result."""
+    spec = SPECS[spec_name]
+    u = _grid((70, 300), dtype, cuda, seed=9, batch=2)
+    plan = TE.plan_for(u.shape[-2:], u.dtype, spec, "shifted")
+    out = torch.empty_like(u)
+    TE.policies.copy_ring(u, out, spec.radius)
+    views = TE.shifted_views(u, spec)
+    before = TE.LAUNCHES["shifted"]
+    got = TE.launch_shifted_views(plan, views, out)
+    torch.cuda.synchronize()
+    assert got is out and TE.LAUNCHES["shifted"] == before + 1
+    assert torch.equal(got, TE.stencil_shifted(u, spec))
+    assert TE.LAUNCHES["shifted"] == before + 2
+    with pytest.raises(ValueError, match="contiguous views"):
+        TE.launch_shifted_views(plan, views[:-1], out)
+
+
 def test_run_schedules_equal_plain_schedules(cuda):
     spec = TS.laplace_2d_9pt()
     u = _grid((70, 300), torch.float32, cuda, seed=2)
@@ -349,6 +444,25 @@ def test_stream_copy_kernel_equals_plain(cuda, h, w, bm, bn, dtype):
     torch.cuda.synchronize()
     assert TK.LAUNCHES["stream_copy"] == before + 1
     assert torch.equal(got, TK.stream_copy_plain(x, bm=bm, bn=bn))
+
+
+@pytest.mark.parametrize("dtype", STREAM_DTYPES)
+@pytest.mark.parametrize("split", [None, 7])
+def test_stream_copy_split_tiles_equal_plain(cuda, split, dtype, monkeypatch):
+    """The table shape with 16 tiles splits each tile's rows over several
+    blocks (16 on 132 SMs); a forced split of 7 does not divide bm = 256."""
+    from repro_torch.kernels import stream as TK
+    x = _values((4096, 4096), dtype, cuda, seed=3)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    want_split = TK.copy_split(4096, 4096, 256, 4096, sms)
+    assert 16 * want_split <= 2 * sms < 16 * (want_split + 1)
+    if split is not None:
+        monkeypatch.setattr(TK, "copy_split", lambda *a: split)
+    before = TK.LAUNCHES["stream_copy"]
+    got = TK.stream_copy(x, bm=256, bn=4096)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["stream_copy"] == before + 1
+    assert torch.equal(got, TK.stream_copy_plain(x, bm=256, bn=4096))
 
 
 @pytest.mark.parametrize("dtype", STREAM_DTYPES)

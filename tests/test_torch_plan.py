@@ -142,7 +142,8 @@ def test_gpu_2d_plan_fits_paper_grid(policy, t, jd, td):
     assert plan.halo == (8 if policy == "temporal" else 1)
     assert plan.window_rows == plan.bm + 2 * plan.halo
     assert plan.window_cols == plan.bn + 2 * plan.halo
-    assert plan.nblocks == (1024 // plan.bm) * (9216 // plan.bn) >= 2 * 132
+    assert plan.nblocks == -(-1024 // plan.bm) * -(-9216 // plan.bn) >= (
+        2 * 132)
     assert f"bn={plan.bn}" in plan.describe()
 
 
@@ -166,8 +167,14 @@ def test_gpu_2d_plan_edges_and_limits():
     # A masked temporal tile pays one byte a cell for the pin set.
     m = TP.plan_for((1026, 9218), torch.float32, ts, "temporal", t=8,
                     device="gpu_sm90", masked=True)
-    cells = (32 + 16) * (128 + 16)
+    # The compiled 5-point K1 keeps rows of TEMPORAL_ROW f32 cells; the
+    # general K1 (any other tap order) rows of bn + 2·t·r.
+    cells = (40 + 16) * TP.TEMPORAL_ROW
     assert m.vmem_bytes == 9 * cells
+    other = TS.StencilSpec(ts.offsets[::-1], ts.weights[::-1])
+    g = TP.plan_for((1026, 9218), torch.float32, other, "temporal", t=8,
+                    device="gpu_sm90", masked=True)
+    assert g.vmem_bytes == 9 * (40 + 16) * (112 + 16)
     assert TP.plan_for((1026, 9218), torch.float32, ts, "shifted",
                        device="gpu_sm90").vmem_bytes == 0
     too_many = TS.StencilSpec(tuple((0, k % 3 - 1) for k in range(33)),
@@ -208,3 +215,87 @@ def test_pick_bm_matches_reference():
         assert TP.pick_bm(h, bm) == JP.pick_bm(h, bm)
     with pytest.warns(UserWarning, match="bm=1"):
         assert TP.pick_bm(1021, 64) == 1
+
+
+@pytest.mark.parametrize("offsets,weights,variant", [
+    (TS.jacobi_2d_5pt().offsets, TS.jacobi_2d_5pt().weights, "jacobi5"),
+    (TS.jacobi_2d_5pt().offsets, (0.1, 0.2, 0.3, 0.4), "jacobi5"),
+    (TS.laplace_2d_9pt().offsets, TS.laplace_2d_9pt().weights, "laplace9"),
+    (*RADIUS2, "radius2"),
+    (TS.jacobi_2d_5pt().offsets[::-1], (0.25,) * 4, "general"),
+    (TS.laplace_2d_9pt().offsets[1:] + TS.laplace_2d_9pt().offsets[:1],
+     TS.laplace_2d_9pt().weights, "general"),
+    (TS.advection_2d_3pt().offsets, TS.advection_2d_3pt().weights,
+     "general"),
+    (TS.jacobi_2d_5pt().offsets[:3], (0.3,) * 3, "general"),
+])
+def test_temporal_variant_is_an_exact_ordered_match(offsets, weights,
+                                                    variant):
+    """A compiled K1 geometry runs only a spec with its offsets in its tap
+    order; weights are run-time arguments and do not matter."""
+    assert TP.temporal_variant(TS.StencilSpec(offsets, weights)) == variant
+
+
+def test_temporal_geometries_match_the_compiled_source():
+    """The table the wrapper matches against is the one stencil.cu
+    compiles, geometry for geometry, in the launcher's order."""
+    import pathlib
+    import re
+    src = (pathlib.Path(TP.__file__).parents[1] / "csrc"
+           / "stencil.cu").read_text()
+    structs = {"jacobi5": "Jacobi5", "laplace9": "Laplace9",
+               "radius2": "Radius2"}
+    assert list(structs) == list(TP.TEMPORAL_GEOMETRIES)
+    quads = int(re.search(r"#define QUADS (\d+)", src).group(1))
+    assert "#define TROW (4 * QUADS)" in src
+    assert TP.TEMPORAL_ROW == 4 * quads
+    launcher = src[src.index("repro_temporal_geo("):]
+    for code, (name, struct) in enumerate(structs.items()):
+        body = src[src.index(f"struct {struct} {{"):]
+        body = body[:body.index("\n};")]
+        arrays = [tuple(int(v) for v in m.split(","))
+                  for m in re.findall(r"a\[N\] = \{([^}]*)\}", body)]
+        assert tuple(zip(*arrays)) == TP.TEMPORAL_GEOMETRIES[name]
+        assert f"case {code}: return run(type, Type<{struct}>{{}});" in (
+            launcher)
+
+
+@pytest.mark.parametrize("spec_name,bm,bn,t,masked", [
+    ("jacobi5", 64, 96, 8, False), ("jacobi5", 64, 96, 8, True),
+    ("jacobi5", 32, 112, 8, False), ("laplace9", 16, 64, 3, False),
+    ("radius2", 64, 96, 8, True), ("radius2", 128, 96, 1, False)])
+def test_smem_2d_temporal_is_the_compiled_layout(spec_name, bm, bn, t,
+                                                 masked):
+    """Two f32 tiles of (bm + 2tr) rows of TEMPORAL_ROW cells, plus a pin
+    byte a cell when masked; the general K1 keeps bn + 2tr columns."""
+    spec = SPECS[spec_name][1]
+    r = spec.radius
+    rows = bm + 2 * t * r
+    halo, nbytes = TP.smem_2d("temporal", 2, spec, bm, bn, t, masked)
+    assert halo == t * r
+    assert nbytes == rows * TP.TEMPORAL_ROW * (9 if masked else 8)
+    general = TS.StencilSpec(spec.offsets[::-1], spec.weights[::-1])
+    assert TP.smem_2d("temporal", 2, general, bm, bn, t, masked)[1] == (
+        rows * (bn + 2 * t * r) * (9 if masked else 8))
+    plan = TP.plan_for((1026 + 2 * r - 2, 9218 + 2 * r - 2), torch.bfloat16,
+                       spec, "temporal", bm=bm, bn=bn, t=t, masked=masked,
+                       device="gpu_sm90")
+    assert plan.vmem_bytes == nbytes and plan.bn == bn
+
+
+@pytest.mark.parametrize("spec_name,t,bn", [
+    ("jacobi5", 8, 112), ("jacobi5", 16, 96), ("jacobi5", 20, 88),
+    ("radius2", 8, 96), ("radius2", 12, 80), ("laplace9", 63, 2)])
+def test_compiled_temporal_tile_fits_one_row(spec_name, t, bn):
+    """A compiled K1's window, bn + 2·t·r, fits one TEMPORAL_ROW row: the
+    default bn clips to it, and a halo that fills the row is refused."""
+    spec = SPECS[spec_name][1]
+    plan = TP.plan_for((1026, 9218), torch.float32, spec, "temporal", t=t,
+                       device="gpu_sm90")
+    assert plan.bn == bn
+    assert plan.bn + 2 * plan.halo <= TP.TEMPORAL_ROW
+    with pytest.raises(TP.PlanError, match="gpu_sm90"):
+        TP.plan_for((1026, 9218), torch.float32, spec, "temporal",
+                    t=TP.TEMPORAL_ROW // (2 * spec.radius),
+                    device="gpu_sm90")
+

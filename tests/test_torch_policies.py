@@ -167,3 +167,30 @@ def test_plain_runs_do_not_count_as_launches():
     TE.run(tu, ts, iters=5, t=2)
     assert TE.LAUNCHES == {"shifted": 0, "rowchunk": 0, "dbuf": 0,
                            "temporal": 0}
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_shifted_views_are_the_plain_shifted_interiors(spec_name, dtype):
+    """K4's operands, made apart from its launch: one contiguous shifted
+    interior per tap, in tap order, whose f32 weighted sum in that order
+    is the plain version's interior bit for bit."""
+    _, ts = SPECS[spec_name]
+    r = ts.radius
+    ju, tu = _problem(13, 29, r, dtype, seed=3)
+    tu = torch.stack([tu, tu.flip(-1)])
+    a = tu.to(torch.float32).numpy()
+    h, w = a.shape[-2:]
+    views = TE.shifted_views(tu, ts)
+    assert len(views) == ts.taps
+    acc = None
+    for v, (dy, dx), wt in zip(views, ts.offsets, ts.weights):
+        assert v.is_contiguous() and v.dtype == tu.dtype
+        np.testing.assert_array_equal(
+            v.to(torch.float32).numpy(),
+            a[..., r + dy:h - r + dy, r + dx:w - r + dx])
+        term = v.to(torch.float32) * TS.f32(wt)
+        acc = term if acc is None else acc + term
+    plain = TE.stencil_shifted_plain(tu, ts)
+    assert torch.equal(acc.to(tu.dtype), plain[..., r:h - r, r:w - r])
+

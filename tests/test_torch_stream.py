@@ -151,3 +151,21 @@ def test_plain_versions_count_no_launches():
     TC.dma_only(x, bm=16)
     TC.compute_only(x, bm=16)
     assert sum(TS.LAUNCHES.values()) + sum(TC.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("h,w,bm,bn,sms,split", [
+    (4096, 4096, 256, 4096, 132, 16),   # Table III at bn 4096: 16 tiles
+    (4096, 4096, 256, 1024, 132, 4),
+    (4096, 4096, 256, 512, 132, 2),
+    (4096, 4096, 256, 256, 132, 1),     # 256 tiles about fill the card
+    (4096, 4096, 256, 8, 132, 1),
+    (64, 4096, 4, 4096, 132, 4),        # never more blocks than rows
+    (256, 256, 256, 256, 132, 256),
+])
+def test_copy_split_gives_about_two_blocks_an_sm(h, w, bm, bn, sms, split):
+    got = TS.copy_split(h, w, bm, bn, sms)
+    assert got == split
+    tiles = (h // bm) * (w // bn)
+    assert 1 <= got <= bm
+    assert tiles * got <= max(2 * sms, tiles)
+    assert tiles * (got + 1) > 2 * sms or got == bm
