@@ -38,11 +38,14 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    H=K=32, causal) and hd 80 (hubert-xlarge's heads: B=4, S=2048, H=K=16,
    non-causal, and a ragged causal case), and at qwen2.5-3b's serving
    shape B=4, S=2048, H=16, K=2, hd=128 causal, in f32 (rtol=atol=2e-5,
-   the CUDA-core kernel) and bf16 (3e-2, the tensor-core kernel), the JAX
+   the split-TF32 kernel) and bf16 (3e-2, the wgmma kernel), the JAX
    package's own tolerances; every case must have launched its dtype's
    kernel. At each S=2048 shape each route, its plain version and
    ``scaled_dot_product_attention`` (a yardstick only) are timed beside
-   the bound (bf16 on the tensor cores' rate, f32 on the CUDA cores');
+   the bound (bf16 on the tensor cores' bf16 rate; f32 as done, three
+   TF32 products at the TF32 rate, and, printed beside it with the
+   kernel's share of each and its ratio to SDPA, on the CUDA cores' f32
+   rate);
 7. LM serving, the second main path: ``qwen2.5-3b`` at full width (36
    layers, d 2048) with ``attn_impl="flash"``, random weights from a
    seeded generator, ``ServeEngine(batch_size=4)`` serving 4 requests of
@@ -52,7 +55,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    (``flash_attention_wgmma``), and the prefill logits must be within
    rtol=5e-2, atol=8e-2 of the same weights through ``attn_impl="jnp"``
    (the JAX package's own bound); both are also compared, as a
-   diagnostic, with the same prefill in f32 compute. Prefill ms and
+   diagnostic, with the same prefill in f32 compute, which must launch
+   K8 36 times, all on the split-TF32 kernel (``flash_attention_tf32``),
+   and nothing else. Prefill ms and
    decode ms a step (wall, and the kernels' device time from
    ``torch.profiler``: the device's busy share), prefill's kernels with
    the most device time, tok/s and peak memory are printed;
@@ -82,7 +87,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     and 1026, a ragged last block) and at the table shapes, in every dtype
     their tables use plus bf16; each timed at its main table shape beside
     its bound and, for the copies, ``Tensor.copy_`` (a yardstick only);
-    K5a's split of a tile over blocks at bn 4096 is printed.
+    K5a's split of a tile over blocks at bn 4096, and K5b's plan, its
+    time against ``copy_`` and the ratio of ``sync=True`` to
+    ``sync=False``, are printed.
     Then ``launch.access`` runs Tables II–VI on the card at the paper's
     sizes with the launch counters zeroed just before: every measured row
     must read ``us_per_call > 0`` and all five kernels must have launched;
@@ -101,15 +108,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     rtol=5e-2, atol=8e-2 of the ``attn_impl="jnp"`` route's (the JAX
     package's own bound), fed the serving path's own stream and fed the
     jnp route's, and so must the whole prefill's logits in f32 compute
-    (K8's CUDA-core route). Prefill and decode times (wall, and kernel
-    time from ``torch.profiler``), prefill's kernels with the most device
-    time, tok/s and peak memory are printed, and a second greedy run must
-    give the same tokens. The whole bf16 prefill's logits against the jnp
-    route's (largest excess over rtol*|jnp|) and both routes' gaps to f32
-    compute are printed and not gated: on these random weights the SSD
-    stack grows a one-ulp bf16 difference in the stream to O(1) at the
-    logits, so two right routes fail that bound (the JAX package's own
-    hybrid fails it between its routes at smoke size);
+    (K8's split-TF32 route, 13 launches). Prefill and decode times
+    (wall, and kernel time from ``torch.profiler``), prefill's kernels
+    with the most device time, tok/s and peak memory are printed, and a
+    second greedy run must give the same tokens. The whole bf16 prefill's
+    logits against the jnp route's (largest excess over rtol*|jnp|) and
+    both routes' gaps to f32 compute are printed and not gated: on these
+    random weights the SSD stack grows a one-ulp bf16 difference in the
+    stream to O(1) at the logits, so two right routes fail that bound
+    (the JAX package's own hybrid fails it between its routes at smoke
+    size);
 12. one JSON line listing the kernels, then the card's name and power
     limit, then the result line.
 
@@ -170,7 +178,7 @@ FLASH = ("K8", "src/repro/kernels/flash_attention.py:82")
 # dtype -> (route, source): the kernel is chosen by dtype.
 FLASH_ROUTES = {
     "bfloat16": ("wgmma", "src/repro_torch/csrc/flash_attention_sm90.cu"),
-    "float32": ("cuda-core", "src/repro_torch/csrc/flash_attention.cu")}
+    "float32": ("tf32x3", "src/repro_torch/csrc/flash_attention.cu")}
 # (B, S, H, K, hd, causal, bq=bk): the shapes of tests/test_kernels_flash.py
 # at their 64-row blocks, GQA groups of 3 and 5, hd 256, lengths that are
 # not a multiple of the key tile, hd 112 and 80, then the serving
@@ -214,16 +222,17 @@ STREAM = {  # wrapper -> (id, TPU kernel it replaces, its main table shape)
 
 class Peaks(NamedTuple):
     """Data-sheet peaks: memory bytes/s, f32 FLOP/s outside the tensor
-    cores, dense bf16 FLOP/s on the tensor cores."""
+    cores, dense bf16 and dense TF32 FLOP/s on the tensor cores."""
     bw: float
     f32: float
     bf16: float
+    tf32: float
 
 
-PEAKS = {"H100 PCIe": Peaks(2.0e12, 51e12, 756e12),
-         "H100 NVL": Peaks(3.9e12, 60e12, 835e12),
-         "H200": Peaks(4.8e12, 67e12, 989e12),
-         "H100": Peaks(3.35e12, 67e12, 989e12)}
+PEAKS = {"H100 PCIe": Peaks(2.0e12, 51e12, 756e12, 378e12),
+         "H100 NVL": Peaks(3.9e12, 60e12, 835e12, 418e12),
+         "H200": Peaks(4.8e12, 67e12, 989e12, 495e12),
+         "H100": Peaks(3.35e12, 67e12, 989e12, 495e12)}
 
 
 def card() -> tuple[str, Peaks]:
@@ -530,17 +539,25 @@ def phase_paths(stats) -> None:
     print("run_batched: every lane bitwise equal to its solo run")
 
 
-def flash_bound_ms(q, k, causal: bool, peaks) -> tuple[float, str]:
+def flash_bound_ms(q, k, causal: bool, peaks,
+                   core: bool = False) -> tuple[float, str]:
     """Least time for attention on these inputs: q, k, v read once and o
     written once, against 4*hd operations for every (query row, key) pair
-    the causal mask keeps, at the dense bf16 tensor-core rate for bf16 and
-    the CUDA cores' f32 rate for f32."""
+    the causal mask keeps, at the dense bf16 tensor-core rate for bf16;
+    for f32 the work as the kernel does it, three TF32 products (split
+    TF32) at the dense TF32 rate, or with ``core`` the function on the
+    CUDA cores at their f32 rate (the route the kernel replaced)."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     pairs = (sum(min(i + 1, sk) for i in range(sq)) if causal
              else sq * sk)
     ops = 4 * hd * pairs * b * h
-    rate = peaks.bf16 if q.dtype == torch.bfloat16 else peaks.f32
+    if q.dtype == torch.bfloat16:
+        rate = peaks.bf16
+    elif core:
+        rate = peaks.f32
+    else:
+        ops, rate = 3 * ops, peaks.tf32
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     b_ms, o_ms = nbytes / peaks.bw * 1e3, ops / rate * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
@@ -548,7 +565,7 @@ def flash_bound_ms(q, k, causal: bool, peaks) -> tuple[float, str]:
 
 def phase_flash(peaks, stats) -> None:
     print("== phase 6: K8 flash attention vs its plain version (bf16 on "
-          "the tensor-core kernel, f32 on the CUDA-core kernel) ==")
+          "the wgmma kernel, f32 on the split-TF32 kernel) ==")
     s = stats.setdefault("flash", {d: {"max_abs_err": 0.0} for d in DTYPES})
     for key in FLASH_TIMED.values():
         s[key] = {d: {} for d in DTYPES}
@@ -573,7 +590,8 @@ def phase_flash(peaks, stats) -> None:
             worst = float((diff - tol * want.float().abs()).max())
             label = f"B={b} S={sq} H={h} K={kh} hd={hd} causal={causal}"
             check(launched == {"flash_attention": 1,
-                               "flash_attention_wgmma": int(route == "wgmma")},
+                               "flash_attention_wgmma": int(route == "wgmma"),
+                               "flash_attention_tf32": int(route != "wgmma")},
                   f"K8 {label} {dname} must launch the {route} kernel once: "
                   f"{launched}")
             check(got.shape == q.shape and got.dtype == dtype
@@ -593,11 +611,19 @@ def phase_flash(peaks, stats) -> None:
                 qt, kt, vt, is_causal=causal, enable_gqa=True), reps=5,
                 inner=5)
             b_ms, b_by = flash_bound_ms(q, k, causal, peaks)
-            print(f"K8 {label:42s} {dname:8s} {route:9s} max|err|={err:.3e} "
-                  f"(tol {tol:g}) kernel_ms={k_ms:.6f} bound_ms={b_ms:.6f} ({b_by}) sdpa_ms={lib_ms:.6f} "
-                  f"plain_ms={p_ms:.6f}")
             timed = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms)
+            extra = ""
+            if dname == "float32":  # the work as done, and on the CUDA cores
+                c_ms, c_by = flash_bound_ms(q, k, causal, peaks, core=True)
+                timed.update(core_bound_ms=c_ms, core_bound_by=c_by)
+                extra = (f" kernel/sdpa={k_ms / lib_ms:.3f} share of the "
+                         f"tf32x3 bound {b_ms / k_ms:.1%}, of the f32 "
+                         f"CUDA-core bound {c_ms:.6f} ({c_by}) "
+                         f"{c_ms / k_ms:.1%}")
+            print(f"K8 {label:42s} {dname:8s} {route:9s} max|err|={err:.3e} "
+                  f"(tol {tol:g}) kernel_ms={k_ms:.6f} bound_ms={b_ms:.6f} "
+                  f"({b_by}) sdpa_ms={lib_ms:.6f} plain_ms={p_ms:.6f}{extra}")
             s[FLASH_TIMED[hd]][dname].update(shape=label, max_abs_err=err,
                                              **timed)
             if hd == 128:
@@ -708,9 +734,22 @@ def phase_serve(smi: str, stats) -> None:
     check(bool(got.isfinite().all()) and worst <= 8e-2,
           f"flash prefill logits off the jnp path: max |diff| {err}")
 
+    reset_all_launches()
     exact, _ = ServeEngine(model.with_config(dataclasses.replace(
         cfg, dtype=torch.float32)), batch_size=WAVE,
         max_len=eng.max_len)._prefill(toks)
+    torch.cuda.synchronize()
+    f32_counts = dict(flash.LAUNCHES)
+    print(f"the f32 prefill's K8 launches: {f32_counts}")
+    check(f32_counts == {"flash_attention": cfg.n_layers,
+                         "flash_attention_wgmma": 0,
+                         "flash_attention_tf32": cfg.n_layers}
+          and sum(all_launches().values()) == 2 * cfg.n_layers,
+          f"the f32 prefill must launch K8 once a layer ({cfg.n_layers}), "
+          f"each on the split-TF32 kernel, and no other kernel")
+    stats["flash"]["float32"].update(
+        launches=cfg.n_layers,
+        path="ServeEngine._prefill(qwen2.5-3b, flash, float32)")
     print(f"the same prefill in f32 compute, max |diff| of flash (bf16) "
           f"{float((got - exact).abs().max()):.6e}, of jnp (bf16) "
           f"{float((want - exact).abs().max()):.6e}")
@@ -961,8 +1000,20 @@ def phase_hybrid(smi: str, stats) -> None:
               f"route's stream: {gaps}")
     del jnp_model
 
-    # The whole model, flash vs jnp, in f32 compute (K8's CUDA-core route).
+    # The whole model, flash vs jnp, in f32 compute (K8's split-TF32 route).
+    reset_all_launches()
     exact = prefill({"dtype": torch.float32})
+    torch.cuda.synchronize()
+    f32_counts = dict(flash.LAUNCHES)
+    print(f"the f32 prefill's K8 launches: {f32_counts}")
+    check(f32_counts == {"flash_attention": groups,
+                         "flash_attention_wgmma": 0,
+                         "flash_attention_tf32": groups},
+          f"the f32 prefill must launch K8 once a group ({groups}), each "
+          f"on the split-TF32 kernel")
+    stats["flash"]["hd112"]["float32"].update(
+        launches=groups,
+        path="ServeEngine._prefill(zamba2-7b, flash, pallas, float32)")
     exact_jnp = prefill({"dtype": torch.float32, "attn_impl": "jnp"})
     err, worst = excess(exact, exact_jnp)
     print(f"prefill logits in f32 compute, flash vs jnp: max |diff| "
@@ -1098,6 +1149,18 @@ def phase_stream(peaks, stats) -> None:
     stats["stream_copy"]["split"] = split
     print(f"K5a at bm=256 bn={side}: {side // 256} tiles on {sms} SMs, "
           f"each split over {split} blocks ({side // 256 * split} blocks)")
+    s = stats["stream_copy_rowdma"]
+    plan = stream.rowdma_plan(side * 4, 64, False)
+    s["sync_ms"] = device_ms(lambda: stream.stream_copy_rowdma(
+        ramp, bm=64, sync=True))
+    s["split"] = plan.split
+    print(f"K5b at bm=64: sync=False {s['ms']:.6f} ms, "
+          f"{s['ms'] / s['library_ms']:.4f}x copy_ ({s['library_ms']:.6f}), "
+          f"{s['bound_ms'] / s['ms']:.1%} of its bound, each bm-row block "
+          f"over {plan.split} blocks of one row ({side // 64 * plan.split} "
+          f"blocks); sync=True {s['sync_ms']:.6f} ms, "
+          f"{s['sync_ms'] / s['ms']:.3f}x sync=False (one row in flight a "
+          f"bm-row block)")
     del ramp, grid, mains
 
     stream.reset_launch_counts()
@@ -1158,18 +1221,20 @@ def main() -> None:
             **({"cases": s["cases"]} if "cases" in s else {})})
     kid, replaces = FLASH
     s = stats["flash"]
-    kernels.append({
-        "name": f"{kid} flash_attention", "route": "cuda",
-        "source": FLASH_ROUTES["bfloat16"][1], "replaces": replaces,
-        "launches": s["launches"], "path": s["path"], "dtype": "bfloat16",
-        "kernel": "wgmma (tensor cores)",
-        "shape": "B=4 S=2048 H=16 K=2 hd=128 causal", **s["bfloat16"],
-        "float32": {"kernel": "cuda-core",
-                    "source": FLASH_ROUTES["float32"][1], **s["float32"]},
-        # zamba2-7b's serving shape (its launches from phase 11), and
-        # hubert-xlarge's heads (no path of the port runs them yet)
-        **{key: {"launches": 0, **s[key]["bfloat16"],
-                 "float32": s[key]["float32"]} for key in ("hd112", "hd80")}})
+    for dname, kernel in (("bfloat16", "wgmma (tensor cores)"),
+                          ("float32", "split TF32 (wgmma, 3 products)")):
+        kernels.append({
+            "name": f"{kid} flash_attention"
+                    + (" f32" if dname == "float32" else ""),
+            "route": "cuda", "source": FLASH_ROUTES[dname][1],
+            "replaces": replaces, "dtype": dname, "kernel": kernel,
+            "shape": "B=4 S=2048 H=16 K=2 hd=128 causal",
+            **({"launches": s["launches"], "path": s["path"]}
+               if dname == "bfloat16" else {}), **s[dname],
+            # zamba2-7b's serving shape (its launches from phase 11), and
+            # hubert-xlarge's heads (no path of the port runs them yet)
+            **{key: {"launches": 0, **s[key][dname]}
+               for key in ("hd112", "hd80")}})
     kid, source, replaces = CONV
     s = stats["conv1d"]
     kernels.append({
@@ -1188,7 +1253,8 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"], "shape": shape,
             **{k: s[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            **{k: s[k] for k in ("traffic_ms", "split") if k in s}})
+            **{k: s[k] for k in ("traffic_ms", "split", "sync_ms")
+               if k in s}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
 // (`flash_attention_local`, body `_kernel`) for bfloat16 inputs; float32
-// inputs stay on the CUDA-core kernel in flash_attention.cu (full f32 has
-// no tensor-core product). It computes the TPU kernel's function:
+// inputs go to the split-TF32 kernel in flash_attention.cu. It computes
+// the TPU kernel's function:
 //
 //   q (B, Sq, H, hd), k and v (B, Sk, KH, hd), H = KH * G, bf16, row-major
 //   and contiguous; o like q. GQA attention with an online softmax; a
@@ -12,7 +12,7 @@
 //   absolute index) scores -1e30 and key tiles past a block's last query
 //   are skipped; the output is acc / max(l, 1e-30), rounded once to bf16.
 //
-// Where it rounds (the CUDA-core kernel keeps everything in f32):
+// Where it rounds (the f32 kernel keeps P and every sum in f32):
 //   * S = Q K^T: bf16 operands into wgmma with f32 sums (the products of
 //     bf16 values are exact in f32; only the order of the sum changes).
 //     The score is scaled by hd**-0.5 after the product, folded with

@@ -143,16 +143,29 @@ __global__ void __launch_bounds__(COPY_THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// K5b: the copy issued as one asynchronous copy per row. One block per
-// bm-row block. Thread 0 moves each row global -> shared with one
-// cp.async.bulk completed on an mbarrier (the closest Hopper form of the
-// TPU's per-row DMA); once it has landed, the block writes it out and frees
-// its slot. Rows stage through a ring of `ring` row slots: sync = 1 issues
-// row r + 1 only after row r has landed and left (one row in flight, the
-// TPU's wait after each row); sync = 0 keeps `ring` rows in flight (the TPU
-// keeps all bm rows in flight: a 16 KiB row makes that impossible in 227 KiB
-// of shared memory). cp.async.bulk needs 16-byte aligned rows of a multiple
-// of 16 bytes; the wrapper refuses anything else.
+// K5b: the copy issued as one asynchronous copy per row, each way. A
+// block's rows go global -> shared, each as one cp.async.bulk completed on
+// an mbarrier (the closest Hopper form of the TPU's per-row DMA), and out
+// again shared -> global, each as one bulk copy committed as a bulk group:
+// no thread touches the data and no barrier is crossed per row. One thread
+// issues the loads into a ring of `ring` row slots; another issues each
+// row's store once it has landed and hands its slot back (an empty
+// mbarrier) once the store has read it (cp.async.bulk.wait_group.read).
+//
+// What bounds it: the bytes, each row read once and written once at 3.35
+// TB/s. Without sync the wrapper (kernels/stream.py::rowdma_plan) gives
+// every row its own block (split = bm): all bm rows of a TPU block are in
+// flight at once, as the TPU keeps them, and blocks of one 16 KiB slot
+// start and end at different times, so the card reads and writes at once
+// throughout, as copy_ does; rings of several rows a block, two blocks
+// an SM, stayed slower than copy_, all blocks loading first and storing
+// last together. Both copies take an L2 evict-first policy. On an H100
+// this runs at 0.99x copy_ (PERF.md). With sync (Tables III/IV's
+// per-access wait) a bm-row block is one block with one row in flight,
+// its next row issued only after the last has landed, as the TPU waits
+// after each row; only the write is asynchronous, out of a second slot.
+// cp.async.bulk needs 16-byte aligned rows of a multiple of 16 bytes; the
+// wrapper refuses anything else.
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -180,61 +193,96 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// Thread 0: expect `bytes` on `bar`, then start the bulk copy that delivers
-// them.
-__device__ __forceinline__ void bulk_row(void* dst, const void* src,
-                                         uint32_t bytes, uint64_t* bar) {
+// An L2 policy that evicts the lines it touches first: a row is read once
+// and written once, so neither side should hold the L2 against the other.
+__device__ __forceinline__ uint64_t evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// Expect `bytes` on `bar`, then start the bulk copy global -> shared that
+// delivers them.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
   asm volatile(
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(evict_first())
       : "memory");
 }
 
-#define RING_BARS 128  // bytes reserved ahead of the slots for the barriers
+// A bulk copy shared -> global, committed as its own bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], "
+      "[%1], %2, %3;\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "l"(evict_first())
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+#define RING_BARS 128  // bytes ahead of the slots: a full and an empty
+                       // barrier for each of up to 8 slots
+
+__global__ void __launch_bounds__(64)
     stream_rowdma_kernel(const unsigned char* __restrict__ x,
                          unsigned char* __restrict__ out, uint32_t row_bytes,
-                         int bm, int ring, int sync) {
+                         int bm, int split, int ring, int sync) {
   extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // row landed
+  uint64_t* empty = full + RING_BARS / 16;             // slot read out
   unsigned char* slots = smem + RING_BARS;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * bm;
+  // This block's run of its bm-row block's rows.
+  const int part = blockIdx.x % split;
+  const int r0 = part * bm / split, n = (part + 1) * bm / split - r0;
+  const size_t first = static_cast<size_t>(blockIdx.x / split) * bm + r0;
+  const unsigned char* src = x + first * row_bytes;
+  unsigned char* dst = out + first * row_bytes;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < ring; ++s) mbar_init(&bars[s], 1);
+    for (int s = 0; s < ring; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const int ahead = sync ? 1 : ring;
   if (threadIdx.x == 0) {
-    for (int r = 0; r < ahead && r < bm; ++r) {
-      bulk_row(slots + static_cast<size_t>(r % ring) * row_bytes,
-               x + (row0 + r) * row_bytes, row_bytes, &bars[r % ring]);
+    // Loads: row r into slot r % ring once the store of row r - ring has
+    // read it; with sync, each row waited for before the next is issued.
+    for (int r = 0; r < n; ++r) {
+      const int s = r % ring, round = r / ring;
+      if (r >= ring) mbar_wait(&empty[s], (round - 1) & 1);
+      bulk_load(slots + static_cast<size_t>(s) * row_bytes,
+                src + static_cast<size_t>(r) * row_bytes, row_bytes,
+                &full[s]);
+      if (sync) mbar_wait(&full[s], round & 1);
     }
-  }
-  const int units = row_bytes / 16;
-  for (int r = 0; r < bm; ++r) {
-    const int s = r % ring;
-    mbar_wait(&bars[s], (r / ring) & 1);
-    const uint4* src =
-        reinterpret_cast<const uint4*>(slots + static_cast<size_t>(s) *
-                                                   row_bytes);
-    uint4* dst = reinterpret_cast<uint4*>(out + (row0 + r) * row_bytes);
-    for (int k = threadIdx.x; k < units; k += blockDim.x) dst[k] = src[k];
-    __syncthreads();  // every thread has read slot s: it may be refilled
-    const int next = r + ahead;
-    if (threadIdx.x == 0 && next < bm) {
-      const int ns = next % ring;
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      bulk_row(slots + static_cast<size_t>(ns) * row_bytes,
-               x + (row0 + next) * row_bytes, row_bytes, &bars[ns]);
+  } else if (threadIdx.x == 32) {
+    // Stores: each landed row out as it lands, its slot handed back once
+    // the store has read it.
+    for (int r = 0; r < n; ++r) {
+      const int s = r % ring;
+      mbar_wait(&full[s], (r / ring) & 1);
+      bulk_store(dst + static_cast<size_t>(r) * row_bytes,
+                 slots + static_cast<size_t>(s) * row_bytes, row_bytes);
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      mbar_arrive(&empty[s]);
     }
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -464,22 +512,28 @@ extern "C" cudaError_t repro_stream_copy(const void* x, void* out, int esize,
   return cudaGetLastError();
 }
 
+// split: blocks a bm-row block's rows go to; ring: row slots a block;
+// sync: one row in flight, waited for before the next is issued.
+// kernels/stream.py::rowdma_plan picks them.
 extern "C" cudaError_t repro_stream_rowdma(const void* x, void* out,
                                            int esize, int h, int w, int bm,
-                                           int sync, int ring, void* stream) {
+                                           int split, int ring, int sync,
+                                           void* stream) {
   const size_t row_bytes = static_cast<size_t>(w) * esize;
   const size_t smem = RING_BARS + static_cast<size_t>(ring) * row_bytes;
+  const long long blocks = static_cast<long long>(h / bm) * split;
   if (h < 1 || w < 1 || bm < 1 || h % bm || (esize != 2 && esize != 4) ||
-      row_bytes % 16 || ring < 1 || ring > RING_BARS / 8 || ring > bm ||
-      smem > MAX_SMEM || !aligned16(x) || !aligned16(out)) {
+      row_bytes % 16 || split < 1 || split > bm || ring < 1 ||
+      ring > RING_BARS / 16 || smem > MAX_SMEM || blocks > 0x7fffffffLL ||
+      !aligned16(x) || !aligned16(out)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = opt_in_smem(stream_rowdma_kernel, smem);
   if (err != cudaSuccess) return err;
-  stream_rowdma_kernel<<<h / bm, THREADS, smem,
+  stream_rowdma_kernel<<<static_cast<unsigned>(blocks), 64, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(x), static_cast<unsigned char*>(out),
-      static_cast<uint32_t>(row_bytes), bm, ring, sync);
+      static_cast<uint32_t>(row_bytes), bm, split, ring, sync);
   return cudaGetLastError();
 }
 

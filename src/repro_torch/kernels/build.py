@@ -133,7 +133,7 @@ SIGNATURES = {
     },
     "stream": {
         "repro_stream_copy": [P, P, I, I, I, I, I, I, I, P],
-        "repro_stream_rowdma": [P, P, I, I, I, I, I, I, P],
+        "repro_stream_rowdma": [P, P, I, I, I, I, I, I, I, P],
         "repro_stream_replicated": [P, P, I, I, I, I, I, P],
         "repro_dma_only": [P, P, I, I, I, I, P],
         "repro_compute_only": [P, P, I, I, I, I, P],

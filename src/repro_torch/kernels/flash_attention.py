@@ -16,9 +16,13 @@ The kernel is chosen by dtype, a rule and not a fallback:
   accumulator in f32; one rounding of ``acc / max(l, 1e-30)`` to bf16.
   128-key tiles (64 at hd 256); hd 80 and 112 padded to 128 with zeros
   inside the kernel. A bf16 input it does not take raises.
-* **float32** goes to ``repro_torch/csrc/flash_attention.cu``, on the CUDA
-  cores, everything in f32 (P included), 64-key tiles: full f32 has no
-  tensor-core product, and TF32 would miss the f32 gate of 2e-5.
+* **float32** goes to ``repro_torch/csrc/flash_attention.cu``, on the
+  tensor cores in split TF32: q scaled by ``hd**-0.5`` in f32, each f32
+  operand split into its TF32 rounding ``big`` and the TF32 rounding of
+  the rest ``small``, and Q K^T and P V each formed as small*big +
+  big*small + big*big with f32 sums (one TF32 product would miss the f32
+  gate of 2e-5), on wgmma; P, the running max, the sum and the
+  accumulator in f32; 32-key tiles.
 
 The plain version is the TPU kernel's loop written with tensor ops: for
 each block of ``bq`` query rows, an online softmax over key blocks of
@@ -33,7 +37,7 @@ version within 2e-5 in f32 and 3e-2 in bf16.
 Forward only (serving prefill needs no gradient). :data:`LAUNCHES`
 counts kernel launches (never the plain version): ``flash_attention``
 every launch of either kernel, ``flash_attention_wgmma`` those of the
-tensor-core kernel.
+bf16 kernel, ``flash_attention_tf32`` those of the f32 kernel.
 """
 from __future__ import annotations
 
@@ -43,11 +47,12 @@ NEG_INF = -1e30
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES: dict[str, int] = {"flash_attention": 0,
-                             "flash_attention_wgmma": 0}
+                             "flash_attention_wgmma": 0,
+                             "flash_attention_tf32": 0}
 
 #: Head dims both kernels are instantiated for, and their largest GQA
-#: group. The tensor-core kernel runs hd 80 and 112 in hd 128's layout,
-#: the columns past hd filled with zeros by its loads.
+#: group. The bf16 kernel runs hd 80 and 112 in hd 128's layout, the
+#: columns past hd filled with zeros by its loads.
 HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 MAX_GROUP = 64
 
@@ -142,10 +147,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash kernel takes contiguous q, k, v")
     from repro_torch.kernels.build import load
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the flash kernels take 16-byte aligned q, k, v "
+                         "(their TMA and cp.async loads need them)")
     wgmma = q.dtype == torch.bfloat16  # the route is chosen by dtype
-    if wgmma and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("the bf16 flash kernel takes 16-byte aligned q, k, "
-                         "v (its TMA loads need them)")
     lib = "flash_attention_sm90" if wgmma else "flash_attention"
     out = torch.empty_like(q)
     err = getattr(load(lib), f"repro_{lib}")(
@@ -155,8 +160,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{lib} kernel launch failed: cudaError_t {err}")
     LAUNCHES["flash_attention"] += 1
-    if wgmma:
-        LAUNCHES["flash_attention_wgmma"] += 1
+    LAUNCHES["flash_attention_wgmma" if wgmma else "flash_attention_tf32"] += 1
     return out
 
 

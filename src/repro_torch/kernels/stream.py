@@ -27,6 +27,8 @@ multiplies by ``factor`` instead, which rounds differently in f32.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
@@ -35,8 +37,6 @@ LAUNCHES: dict[str, int] = {"stream_copy": 0, "stream_copy_rowdma": 0,
 
 #: Dtype codes of the kernels that widen to f32.
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
-#: Row slots K5b stages rows through (rows in flight without ``sync``).
-RING_SLOTS = 8
 #: Shared memory a K5b block may give its ring of rows.
 RING_BYTES = 227 * 1024 - 128
 #: K5c's blocks tile rows 32 at a time along the launch grid's y extent.
@@ -122,14 +122,36 @@ def stream_copy_rowdma_plain(x: torch.Tensor, *, bm: int,
     return x.clone()
 
 
+class RowdmaPlan(NamedTuple):
+    """How K5b runs: ``split`` blocks share each bm-row block's rows, and
+    each stages its rows through ``ring`` row slots."""
+    split: int
+    ring: int
+
+
+def rowdma_plan(row_bytes: int, bm: int, sync: bool) -> RowdmaPlan:
+    """K5b's blocks and ring for rows of ``row_bytes``.
+
+    Without ``sync`` every row is its own block, so all ``bm`` rows of a
+    bm-row block are in flight at once, as the TPU keeps them. With
+    ``sync`` a bm-row block is one block with one row in flight (the TPU's
+    wait after each row), and a second slot, where two fit, takes the next
+    row while the last one's store reads its own.
+    """
+    if not sync:
+        return RowdmaPlan(bm, 1)
+    return RowdmaPlan(1, min(2, RING_BYTES // row_bytes))
+
+
 def stream_copy_rowdma(x: torch.Tensor, *, bm: int,
                        sync: bool) -> torch.Tensor:
-    """Copy issued one asynchronous row copy at a time (K5b), with a wait
-    after each row (``sync``) or :data:`RING_SLOTS` rows in flight.
+    """Copy issued as one asynchronous copy a row each way (K5b), with a
+    wait after each row (``sync``) or all rows in flight
+    (:func:`rowdma_plan`).
 
-    On the card each row is one ``cp.async.bulk``, which moves multiples of
-    16 bytes between 16-byte aligned addresses: rows of another width, or
-    wider than :data:`RING_BYTES`, raise ``ValueError``.
+    On the card each row is one ``cp.async.bulk`` in and one out, which
+    move multiples of 16 bytes between 16-byte aligned addresses: rows of
+    another width, or wider than :data:`RING_BYTES`, raise ``ValueError``.
     """
     _check(x, bm)
     if _device(x) == "cpu":
@@ -144,9 +166,9 @@ def stream_copy_rowdma(x: torch.Tensor, *, bm: int,
         raise ValueError(f"a row of {row_bytes} bytes does not fit the "
                          f"row-DMA kernel's {RING_BYTES} bytes of shared "
                          f"memory")
-    ring = min(bm, RING_SLOTS, RING_BYTES // row_bytes)
     return _launch("stream_copy_rowdma", "repro_stream_rowdma", x,
-                   x.element_size(), h, w, bm, int(sync), ring)
+                   x.element_size(), h, w, bm, *rowdma_plan(row_bytes, bm,
+                                                            sync), int(sync))
 
 
 def stream_replicated_plain(x: torch.Tensor, *, bm: int,

@@ -219,19 +219,18 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
     """Covers GQA groups 1-8, groups of 3 and 5 (a partial row tile), hd
     16 to 256, the serving prefills' shapes (qwen2.5-3b's at hd 128,
     zamba2-7b's at hd 112) and hubert-xlarge's heads (hd 80, non-causal),
-    and lengths that are not a multiple of the key tile (64 keys in f32,
+    and lengths that are not a multiple of the key tile (32 keys in f32;
     128 in bf16, 64 at hd 256).
-    bf16 goes through the tensor-core kernel, f32 through the CUDA-core
-    one."""
+    bf16 goes through the wgmma kernel, f32 through the split-TF32 one."""
     from repro_torch.kernels import flash_attention as TF
     q, k, v = _qkv(b, s, h, kh, hd, dtype, cuda)
     before = dict(TF.LAUNCHES)
     got = TF.flash_attention_local(q, k, v, causal=causal, bq=s, bk=s)
     torch.cuda.synchronize()
-    assert TF.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
-    wgmma = TF.LAUNCHES["flash_attention_wgmma"] - before[
-        "flash_attention_wgmma"]
-    assert wgmma == (1 if dtype == torch.bfloat16 else 0)
+    ran = {key: n - before[key] for key, n in TF.LAUNCHES.items()}
+    bf16 = dtype == torch.bfloat16
+    assert ran == {"flash_attention": 1, "flash_attention_wgmma": int(bf16),
+                   "flash_attention_tf32": int(not bf16)}
     want = TF.flash_attention_local_plain(q, k, v, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     tol = FLASH_TOL[dtype]
@@ -239,14 +238,41 @@ def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
 
 
 def test_flash_f32_stays_on_the_cuda_core_kernel(cuda):
+    """f32 launches its own kernel (split TF32, csrc/flash_attention.cu)
+    once and never the bf16 one."""
     from repro_torch.kernels import flash_attention as TF
     q, k, v = _qkv(2, 256, 16, 2, 128, torch.float32, cuda, seed=1)
     TF.reset_launch_counts()
     got = TF.flash_attention_local(q, k, v)
     torch.cuda.synchronize()
-    assert TF.LAUNCHES == {"flash_attention": 1, "flash_attention_wgmma": 0}
+    assert TF.LAUNCHES == {"flash_attention": 1, "flash_attention_wgmma": 0,
+                           "flash_attention_tf32": 1}
     torch.testing.assert_close(
         got, TF.flash_attention_local_plain(q, k, v), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(130, 200, True),
+                                          (200, 130, True), (77, 77, False)])
+@pytest.mark.parametrize("group", [1, 3, 5, 8])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128, 256])
+def test_flash_f32_kernel_over_head_dims_groups_and_lengths(cuda, hd, group,
+                                                            sq, sk, causal):
+    """The split-TF32 kernel within the f32 gate, 2e-5, of its plain
+    version at every head dim it takes, GQA groups 1, 3, 5 and 8 (3 and 5
+    leave rows of a CTA unused), Sq != Sk both ways (causal by absolute
+    position), lengths not a multiple of its key tile, and non-causal."""
+    from repro_torch.kernels import flash_attention as TF
+    g = torch.Generator().manual_seed(hd + group)
+    q = torch.randn((2, sq, 2 * group, hd), generator=g).to(cuda)
+    k, v = (torch.randn((2, sk, 2, hd), generator=g).to(cuda)
+            for _ in range(2))
+    before = TF.LAUNCHES["flash_attention_tf32"]
+    got = TF.flash_attention_local(q, k, v, causal=causal, bq=sq, bk=sk)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES["flash_attention_tf32"] == before + 1
+    want = TF.flash_attention_local_plain(q, k, v, causal=causal, bq=sq,
+                                          bk=sk)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
 
 
 def test_flash_kernel_rejects_what_it_does_not_take(cuda):
@@ -263,11 +289,16 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda):
         TF.flash_attention_local(strided, k, v)
     with pytest.raises(ValueError, match="sq % bq"):
         TF.flash_attention_local(q, k, v, bq=48)
+    shifted = torch.empty(q.numel() + 2, dtype=q.dtype, device=cuda)
+    unaligned = shifted[2:].view(q.shape)  # 8 bytes past a 16-byte line
+    unaligned.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TF.flash_attention_local(unaligned, k, v)
 
 
 def test_flash_bf16_kernel_rejects_what_it_does_not_take(cuda):
-    """bf16 inputs the tensor-core kernel does not take raise; nothing is
-    handed to the CUDA-core kernel or the plain version instead."""
+    """bf16 inputs the wgmma kernel does not take raise; nothing is
+    handed to the f32 kernel or the plain version instead."""
     from repro_torch.kernels import flash_attention as TF
     TF.reset_launch_counts()
     q, k, v = _qkv(1, 128, 4, 2, 48, torch.bfloat16, cuda)
@@ -283,7 +314,8 @@ def test_flash_bf16_kernel_rejects_what_it_does_not_take(cuda):
     assert unaligned.is_contiguous() and unaligned.data_ptr() % 16 == 8
     with pytest.raises(ValueError, match="16-byte aligned"):
         TF.flash_attention_local(unaligned, k, v)
-    assert TF.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0}
+    assert TF.LAUNCHES == {"flash_attention": 0, "flash_attention_wgmma": 0,
+                           "flash_attention_tf32": 0}
 
 
 def test_smoke_lm_serves_through_the_flash_kernel(cuda):
@@ -336,7 +368,8 @@ def test_smoke_hybrid_at_hd_112_serves_through_k8_and_k7(cuda):
     done = ServeEngine(model, batch_size=2, max_len=40).generate(reqs)
     groups = cfg.n_layers // cfg.hybrid_period
     assert TF.LAUNCHES == {"flash_attention": groups,
-                           "flash_attention_wgmma": groups}
+                           "flash_attention_wgmma": groups,
+                           "flash_attention_tf32": 0}
     assert TK.LAUNCHES["conv1d"] == cfg.n_layers
     assert all(len(r.generated) == 4 for r in done)
 
@@ -476,6 +509,41 @@ def test_stream_rowdma_kernel_equals_plain(cuda, h, w, bm, sync, dtype):
     got = TK.stream_copy_rowdma(x, bm=bm, sync=sync)
     torch.cuda.synchronize()
     assert TK.LAUNCHES["stream_copy_rowdma"] == before + 1
+    assert torch.equal(got, x)
+
+
+@pytest.mark.parametrize("dtype", STREAM_DTYPES)
+@pytest.mark.parametrize("sync", [False, True])
+@pytest.mark.parametrize("h,w,bm", [
+    (4096, 4096, 64),   # Table III: 64 bm-row blocks (below the SM count)
+    (480, 1024, 48),    # 10 bm-row blocks of 48 rows
+    (2400, 256, 8),     # 300 bm-row blocks, above the SM count
+    (96, 2048, 96)])    # one bm-row block
+def test_stream_rowdma_split_equals_plain(cuda, h, w, bm, sync, dtype):
+    """K5b bit for bit at the table's shape and with bm-row blocks below
+    and above the SM count, with sync (one block a bm-row block) and
+    without (one block a row)."""
+    from repro_torch.kernels import stream as TK
+    x = _values((h, w), dtype, cuda, seed=2)
+    plan = TK.rowdma_plan(w * x.element_size(), bm, sync)
+    assert plan.split == (1 if sync else bm)
+    before = TK.LAUNCHES["stream_copy_rowdma"]
+    got = TK.stream_copy_rowdma(x, bm=bm, sync=sync)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["stream_copy_rowdma"] == before + 1
+    assert torch.equal(got, TK.stream_copy_rowdma_plain(x, bm=bm, sync=sync))
+
+
+@pytest.mark.parametrize("plan", [(7, 3), (64, 1), (1, 8), (5, 2), (4, 8)])
+def test_stream_rowdma_forced_plans_equal_plain(cuda, plan, monkeypatch):
+    """Any split of a bm-row block and ring gives the same copy (7 and 5
+    divide no 64; a ring of 8 and a block of 16 rows reuse every slot)."""
+    from repro_torch.kernels import stream as TK
+    x = _values((1024, 4096), torch.int32, cuda, seed=3)
+    monkeypatch.setattr(TK, "rowdma_plan",
+                        lambda *a: TK.RowdmaPlan(*plan))
+    got = TK.stream_copy_rowdma(x, bm=64, sync=False)
+    torch.cuda.synchronize()
     assert torch.equal(got, x)
 
 

@@ -140,3 +140,104 @@ def test_tensor_core_rounding_within_the_bf16_bound(causal, split):
     for want in (np.asarray(jax_out, np.float32), plain.float().numpy()):
         np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
                                    atol=3e-2)
+
+
+def _split_tf32(x):
+    """The f32 kernel's split of an f32 tensor: ``big``, x rounded to TF32
+    (the low 13 mantissa bits dropped, rounding to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32``), and ``small``, the exact rest
+    ``x - big`` rounded the same way."""
+    def tf32(t):
+        bits = t.contiguous().view(torch.int32)
+        return ((bits + 0x1000) & -0x2000).view(torch.float32)
+    big = tf32(x.to(torch.float32))
+    return big, tf32(x - big)
+
+
+def _split_tf32_rounding(q, k, v, causal):
+    """The f32 kernel's arithmetic, written out on the CPU: q scaled by
+    hd**-0.5 in f32; every operand of Q K^T and P V split into its TF32
+    rounding (big) and the TF32 rounding of the rest (small), each product
+    formed as small*big + big*small + big*big with f32 sums; an online
+    softmax over tiles of 32 keys in order, running max from -1e30, causal
+    scores -1e30, the sum l of the f32 P; acc / max(l, 1e-30)."""
+    b, s, h, hd = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    tile = 32
+    qs = (q * hd ** -0.5).reshape(b, s, kh, g, hd).permute(0, 2, 1, 3, 4)
+    kf, vf = (x.permute(0, 2, 1, 3) for x in (k, v))
+    (qb, qsm), (kb, ksm), (vb, vsm) = (_split_tf32(x) for x in (qs, kf, vf))
+
+    def prod(eq, a_big, a_small, b_big, b_small):
+        return (torch.einsum(eq, a_small, b_big)
+                + torch.einsum(eq, a_big, b_small)
+                + torch.einsum(eq, a_big, b_big))
+
+    pos = torch.arange(s)
+    m = torch.full((b, kh, s, g), TF.NEG_INF)
+    lsum = torch.zeros((b, kh, s, g))
+    acc = torch.zeros((b, kh, s, g, hd))
+    for k0 in range(0, sk, tile):
+        keys = slice(k0, k0 + tile)
+        sc = prod("bkqgd,bksd->bkqgs", qb, qsm, kb[:, :, keys],
+                  ksm[:, :, keys])
+        if causal:
+            keep = pos[keys][None, :] <= pos[:, None]
+            sc = torch.where(keep[:, None, :], sc, TF.NEG_INF)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new[..., None])
+        lsum = lsum * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + prod(
+            "bkqgs,bksd->bkqgd", *_split_tf32(p), vb[:, :, keys],
+            vsm[:, :, keys])
+        m = m_new
+    out = acc / torch.clamp(lsum, min=1e-30)[..., None]
+    return out.permute(0, 2, 1, 3, 4).reshape(b, s, h, hd)
+
+
+# The f32 cases of chip_smoke.py's FLASH_SHAPES that run in seconds on the
+# CPU (all but the S = 2048 serving shapes, which run on the card): GQA
+# groups 1-8, 3 and 5, hd 16 to 256 with 80 and 112, lengths 130 and 300
+# that are not a multiple of the key tile, causal and not.
+SPLIT_SHAPES = [(2, 128, 4, 2, 32, True), (1, 256, 8, 8, 16, True),
+                (2, 128, 4, 1, 32, False), (1, 64, 2, 2, 64, True),
+                (1, 192, 6, 2, 128, True), (2, 96, 3, 3, 256, True),
+                (1, 128, 12, 4, 64, True), (2, 300, 16, 2, 128, True),
+                (1, 130, 5, 1, 32, False), (2, 300, 32, 32, 112, True),
+                (1, 256, 8, 4, 112, True), (1, 300, 6, 3, 80, True),
+                (1, 256, 4, 4, 80, False)]
+
+
+@pytest.mark.parametrize("b,s,h,kh,hd,causal", SPLIT_SHAPES)
+def test_split_tf32_within_the_f32_bound(b, s, h, kh, hd, causal):
+    """The f32 kernel's split-TF32 products and 32-key tiles stay within
+    the f32 gate, rtol = atol = 2e-5, of the port's plain version (the TPU
+    kernel's tile loop in f32)."""
+    q, k, v = (_torch(a, torch.float32)
+               for a in _inputs(b, s, h, kh, hd, seed=s + h))
+    got = _split_tf32_rounding(q, k, v, causal)
+    want = TF.flash_attention_local_plain(q, k, v, causal=causal, bq=s,
+                                          bk=s)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_split_tf32_is_the_kernels_rounding():
+    """big keeps 11 significant bits, rounded to nearest with ties away
+    from zero; small is the exact rest rounded the same way, so big +
+    small is within 2^-22 of x."""
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 3 * 2 ** -12,
+                      1 + 2 ** -12 - 2 ** -23, 3.0, -0.1])
+    big, small = _split_tf32(x)
+    assert big.tolist()[:4] == [1 + 2 ** -10, -(1 + 2 ** -10), 1 + 2 ** -10,
+                                1.0]
+    assert big[4] == 3.0 and small[4] == 0.0
+    assert torch.all(big.view(torch.int32) & 0x1FFF == 0)
+    assert torch.all(small.view(torch.int32) & 0x1FFF == 0)
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        10000, dtype=np.float32))
+    big, small = _split_tf32(y)
+    assert torch.equal(y - big, (y.double() - big.double()).float())
+    assert float(((y - big - small).abs() / y.abs()).max()) <= 2 ** -22

@@ -169,3 +169,23 @@ def test_copy_split_gives_about_two_blocks_an_sm(h, w, bm, bn, sms, split):
     assert 1 <= got <= bm
     assert tiles * got <= max(2 * sms, tiles)
     assert tiles * (got + 1) > 2 * sms or got == bm
+
+
+@pytest.mark.parametrize("row_bytes,bm", [
+    (16384, 64), (1024, 16), (160, 32), (200000, 2), (32, 1)])
+def test_rowdma_plan_puts_every_row_in_flight(row_bytes, bm):
+    """Without ``sync`` every row of a bm-row block is its own block with
+    one slot, so all bm rows are in flight at once (as the TPU keeps
+    them); Table III's 4096 x 4096 int32 at bm 64 is 4096 blocks."""
+    assert tuple(TS.rowdma_plan(row_bytes, bm, False)) == (bm, 1)
+
+
+@pytest.mark.parametrize("row_bytes,bm", [
+    (16384, 64), (1024, 16), (160, 32), (200000, 2), (32, 1)])
+def test_rowdma_plan_with_sync_keeps_one_row_in_flight(row_bytes, bm):
+    """With ``sync`` each bm-row block of the TPU's grid is one block
+    (its rows issued one at a time by the kernel), with a second slot,
+    where two fit, for the next row while the last one's store reads its
+    own."""
+    split, ring = TS.rowdma_plan(row_bytes, bm, True)
+    assert split == 1 and ring == min(2, TS.RING_BYTES // row_bytes)
