@@ -11,9 +11,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    against its plain PyTorch version on the card at 1026 x 9218 (the
    paper's 1024 x 9216 domain with its ring), for the 5-point, 9-point and
    a radius-2 spec, in f32 and bf16, K1 with and without a pin mask: all
-   bit for bit, each K1 call on its spec's compiled geometry. Time each
+   bit for bit, each K1, K2 and K3 call on its spec's compiled geometry;
+   K2 and K3 also on the grid as a view one element into its storage
+   (input and output) and at an odd width. Time each
    kernel, its plain version and, for one sweep,
-   ``torch.nn.functional.conv2d`` as a yardstick (TF32 off). Every K1 case
+   ``torch.nn.functional.conv2d`` as a yardstick (TF32 off). K2, K3 and
+   conv2d are timed warm (calls back to back on one grid, which fits the
+   50 MB L2 with its output) and cold (the calls rotate over grids of
+   three times the L2), K2 and K3 beside their general kernel on the same
+   work (the taps reversed). Every K1 case
    is timed beside the general K1 on the same work at its old tile (the
    parent's kernel) and two bounds: the f32 operations at the published
    peak, and at half of it (each multiply and add issued alone, as bit for
@@ -22,15 +28,16 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
 4. the main path, ``engine.run(make_laplace_problem(1024, 9216),
    policy="auto", iters=1003)`` in bf16 and f32: the schedule must be 125
    temporal blocks of t=8 plus 3 rowchunk sweeps, the launch counters must
-   show 125 K1 and 3 K2 launches, all 125 K1 launches on the compiled
-   jacobi5 kernel, the result must equal the same schedule
+   show 125 K1 and 3 K2 launches, all on the compiled jacobi5 kernels,
+   the result must equal the same schedule
    of plain functions bit for bit and be within f32 1e-4 / bf16 5e-2 of
    the reference policy run in f32 from the same start (the bf16 reference
    rounds after every sweep and drifts from the f32 solve; its drift is
    printed beside the error);
-5. the other paths: ``step`` (auto picks dbuf, K3), the ``shifted``
-   policy (K4), ``run_converged`` with a tolerance that stops early, and
-   ``run_batched`` with B=4, each lane equal to its solo run bit for bit;
+5. the other paths: ``step`` (auto picks dbuf: one K3 launch, on the
+   jacobi5 kernel), the ``shifted`` policy (K4), ``run_converged`` with a
+   tolerance that stops early, and ``run_batched`` with B=4 (3 K2 on the
+   jacobi5 kernel), each lane equal to its solo run bit for bit;
 6. K8 (flash attention) against its plain PyTorch version on the card, at
    the JAX package's test shapes, at GQA groups of 3 and 5, hd 256,
    lengths that are not a multiple of the key tile, at hd 112 (zamba2-7b:
@@ -156,6 +163,7 @@ from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import stream  # noqa: E402
 from repro_torch.layers import basic  # noqa: E402
 from repro_torch.launch import access  # noqa: E402
+from repro_torch.launch.sweep_ab import cold_ms, cold_pairs  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.obs.timing import (device_ms, kernel_ms,  # noqa: E402
@@ -285,14 +293,77 @@ def shifted_kernel_bound_ms(spec: StencilSpec, u: torch.Tensor,
 
 
 def conv_yardstick(spec: StencilSpec, u: torch.Tensor):
-    """One sweep's interior as one cuDNN convolution (timed only)."""
+    """One sweep's interior as one cuDNN convolution (timed only): of
+    ``u``, or of the grid it is given."""
     r = spec.radius
     w = torch.zeros((1, 1, 2 * r + 1, 2 * r + 1), dtype=u.dtype,
                     device=u.device)
     for (dy, dx), wt in zip(spec.offsets, spec.weights):
         w[0, 0, dy + r, dx + r] = wt
-    x = u[None, None]
-    return lambda: torch.nn.functional.conv2d(x, w)
+    return lambda x=u: torch.nn.functional.conv2d(x[None, None], w)
+
+
+VARIANTS = {"temporal": engine.TEMPORAL_VARIANTS,
+            "rowchunk": engine.ROWCHUNK_VARIANTS,
+            "dbuf": engine.DBUF_VARIANTS}
+
+
+def sweep_off_path(policy: str, spec_name: str, spec: StencilSpec,
+                   dname: str) -> None:
+    """K2 or K3 where no row is 16-byte aligned the same way: the grid as
+    a view one element into its storage (2 bytes in bf16), input and
+    output both, and a grid of odd width (NX + 2r + 1); bit for bit, on
+    the spec's kernel."""
+    r, dtype = spec.radius, DTYPES[dname]
+    fn = getattr(engine, f"stencil_{policy}")
+    plain = getattr(engine, f"stencil_{policy}_plain")
+    h, w = NY + 2 * r, NX + 2 * r
+    g = torch.Generator(device="cuda").manual_seed(3)
+    buf = torch.rand(h * w + 1, generator=g, device="cuda").to(dtype)
+    u = buf[1:].view(h, w)
+    out = torch.full_like(buf, -3.0)[1:].view(h, w)
+    engine.policies.copy_ring(u, out, r)
+    odd = torch.rand((h, w + 1), generator=g, device="cuda").to(dtype)
+    before = dict(VARIANTS[policy])
+    for label, grid_, kw in (("view at 1 element", u, {"out": out}),
+                             (f"width {w + 1}", odd, {})):
+        got = fn(grid_, spec, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain(grid_, spec)),
+              f"{policy} {spec_name} {dname} {label} != its plain version")
+    ran = {k: n - before[k] for k, n in VARIANTS[policy].items()}
+    check(ran == {k: 2 * (k == spec_name) for k in ran},
+          f"{policy} {spec_name} {dname} off the aligned path ran {ran}")
+    print(f"{policy:16s} {spec_name:9s} {dname:8s} bitwise  as a view "
+          f"at 1 element and at width {w + 1}")
+
+
+def time_sweep(policy, spec, dname, u, out, p_ms, lib, peaks, s) -> None:
+    """K2 or K3 at the paper grid: warm (calls back to back on one grid,
+    which fits the L2 with its output), cold (the calls rotate over grids
+    of three times the L2), the general kernel on the same work (the taps
+    reversed), the bound, and conv2d warm and cold."""
+    fn = getattr(engine, f"stencil_{policy}")
+    rev = StencilSpec(spec.offsets[::-1], spec.weights[::-1])
+    check(torch.equal(fn(u, rev), getattr(
+        engine, f"stencil_{policy}_plain")(u, rev)),
+        f"the general {policy} kernel != its plain version")
+    k_ms = device_ms(lambda: fn(u, spec, out=out))
+    g_ms = device_ms(lambda: fn(u, rev, out=out))
+    pairs = cold_pairs(u, out)
+    k_cold = cold_ms(lambda x, o: fn(x, spec, out=o), pairs)
+    lib_ms = device_ms(lib)
+    lib_cold = cold_ms(lambda x, o: lib(x), pairs)
+    del pairs
+    b_ms, b_by = bound_ms(policy, spec, u, 1, peaks)
+    print(f"{policy:16s} {'jacobi5':9s} {dname:8s} bitwise  "
+          f"kernel_ms={k_ms:.6f} kernel_cold_ms={k_cold:.6f} "
+          f"general_ms={g_ms:.6f} plain_ms={p_ms:.6f} bound_ms={b_ms:.6f} "
+          f"({b_by}; share warm {b_ms / k_ms:.1%}, cold {b_ms / k_cold:.1%})"
+          f" library_ms={lib_ms:.6f} library_cold_ms={lib_cold:.6f}")
+    s[dname] = {"ms": k_ms, "cold_ms": k_cold, "general_ms": g_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms, "library_cold_ms": lib_cold}
 
 
 def general_k1(spec: StencilSpec, u: torch.Tensor, mask):
@@ -327,10 +398,10 @@ def phase_kernels(peaks, stats) -> None:
             cases += [("temporal", {"t": T}), ("temporal", {"t": T,
                                                            "mask": mask})]
             for policy, kw in cases:
-                before = dict(engine.TEMPORAL_VARIANTS)
+                counts = VARIANTS.get(policy, {})
+                before = dict(counts)
                 got = getattr(engine, f"stencil_{policy}")(u, spec, **kw)
-                ran = {k: n - before[k]
-                       for k, n in engine.TEMPORAL_VARIANTS.items()}
+                ran = {k: n - before[k] for k, n in counts.items()}
                 want = getattr(engine, f"stencil_{policy}_plain")(u, spec,
                                                                   **kw)
                 torch.cuda.synchronize()
@@ -338,14 +409,15 @@ def phase_kernels(peaks, stats) -> None:
                 label = policy + (" masked" if "mask" in kw else "")
                 check(torch.equal(got, want),
                       f"{label} {spec_name} {dname}: max |err| {err}")
-                if policy == "temporal":
-                    check(ran == {k: int(k == variant) for k in ran},
-                          f"{label} {spec_name} {dname} ran K1 {ran}")
+                check(ran == {k: int(k == variant) for k in ran},
+                      f"{label} {spec_name} {dname} ran {ran}")
                 s = stats.setdefault(policy, {"max_abs_err": 0.0})
                 s["max_abs_err"] = max(s["max_abs_err"], err)
                 if policy == "temporal":
                     time_k1(spec_name, spec, dname, u, out, kw, peaks, s)
                     continue
+                if policy != "shifted":
+                    sweep_off_path(policy, spec_name, spec, dname)
                 if spec_name != "jacobi5":
                     print(f"{label:16s} {spec_name:9s} {dname:8s} bitwise")
                     continue
@@ -354,18 +426,14 @@ def phase_kernels(peaks, stats) -> None:
                 k_ms = device_ms(lambda: fn(u, spec, out=out, **kw))
                 p_ms = device_ms(lambda: plain(u, spec, **kw), reps=3,
                                  inner=3)
+                if policy != "shifted":
+                    time_sweep(policy, spec, dname, u, out, p_ms,
+                               conv_yardstick(spec, u), peaks, s)
+                    continue
                 lib_ms = device_ms(conv_yardstick(spec, u))
                 b_ms, b_by = bound_ms(policy, spec, u, 1, peaks)
-                if policy == "shifted":
-                    time_k4(spec, dname, u, out, k_ms, p_ms, lib_ms, b_ms,
-                            peaks, s)
-                    continue
-                print(f"{label:16s} {spec_name:9s} {dname:8s} bitwise  "
-                      f"kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
-                      f"bound_ms={b_ms:.6f} ({b_by}) library_ms="
-                      f"{lib_ms:.6f}")
-                s[dname] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                            "bound_by": b_by, "library_ms": lib_ms}
+                time_k4(spec, dname, u, out, k_ms, p_ms, lib_ms, b_ms, peaks,
+                        s)
 
 
 def time_k1(spec_name, spec, dname, u, out, kw, peaks, s) -> None:
@@ -465,6 +533,10 @@ def phase_main(smi: str, stats) -> None:
         check(variants == {"jacobi5": 125, "laplace9": 0, "radius2": 0,
                            "general": 0},
               f"all 125 K1 launches must be the jacobi5 kernel: {variants}")
+        k2 = dict(engine.ROWCHUNK_VARIANTS)
+        check(k2 == {"jacobi5": 3, "laplace9": 0, "radius2": 0,
+                     "general": 0},
+              f"all 3 K2 launches must be the jacobi5 kernel: {k2}")
         if dname == "bfloat16":
             stats["temporal"].update(launches=counts["temporal"],
                                      path="engine.run(auto, iters=1003)")
@@ -501,6 +573,8 @@ def phase_paths(stats) -> None:
     print(f"step(auto): launches {counts}")
     check(counts["dbuf"] == 1 and torch.equal(out, apply_stencil(u0, spec)),
           "step(auto) must launch dbuf once and equal the oracle")
+    check(engine.DBUF_VARIANTS["jacobi5"] == 1,
+          f"step(auto) must run K3's jacobi5 kernel: {engine.DBUF_VARIANTS}")
     stats["dbuf"].update(launches=counts["dbuf"], path="engine.step(auto)")
     out, counts = counted(lambda: engine.run(u0, spec, policy="shifted",
                                              iters=3))
@@ -532,6 +606,8 @@ def phase_paths(stats) -> None:
     print(f"run_batched(B=4, iters=67): launches {counts}")
     check(counts == {"shifted": 0, "rowchunk": 3, "dbuf": 0, "temporal": 8},
           "a batch is one launch per block")
+    check(engine.ROWCHUNK_VARIANTS["jacobi5"] == 3,
+          f"run_batched's K2 kernel: {engine.ROWCHUNK_VARIANTS}")
     for i in range(4):
         check(torch.equal(got[i], engine.run(lanes[i].clone(), spec,
                                              iters=67)),

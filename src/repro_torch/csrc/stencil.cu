@@ -15,17 +15,22 @@
 // Bounds on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
 // cores): one sweep of a grid must read it once and write its interior
 // once, 8 bytes a cell in f32 and 4 in bf16, against 2*taps-1 f32
-// operations a cell, so every kernel here is bound by bytes; the temporal
-// kernel divides the bytes by t and multiplies the operations by t. The
-// peak counts a fused multiply-add as two operations; these kernels issue
-// each multiply and add alone, at half that rate, so K1 at t = 8 is bound
-// by operations in bf16 (5-point: 0.0158 ms against 0.0113 of bytes).
+// operations a cell, so every one-sweep kernel here (K2, K3, K4) is bound
+// by bytes: 0.011281 ms in bf16 and 0.022561 in f32 at 1026 x 9218. The
+// temporal kernel divides the bytes by t and multiplies the operations by
+// t. The peak counts a fused multiply-add as two operations; these kernels
+// issue each multiply and add alone, at half that rate, so K1 at t = 8 is
+// bound by operations in bf16 (5-point: 0.0158 ms against 0.0113 of
+// bytes). A plain copy of that grid's bytes (Tensor.copy_) takes 0.0136
+// ms warm and 0.0180 ms cold in bf16 on that card (launch/sweep_ab.py,
+// PERF.md).
 //
-// The tap table (offsets and f32 weights) rides in registers: each kernel
-// is instantiated for a tap bound NT in {4, 8, 16, 32}, its tap loops are
-// unrolled to NT, and taps past the spec's count are skipped. K1 has a
-// second form, compiled for each tap geometry the repo ships (offsets as
-// constants), which the wrapper picks by the spec's offsets.
+// The tap table (offsets and f32 weights) rides in registers: each general
+// kernel is instantiated for a tap bound NT in {4, 8, 16, 32}, its tap
+// loops are unrolled to NT, and taps past the spec's count are skipped.
+// K1, K2 and K3 have a second form, compiled for each tap geometry the repo
+// ships (offsets as constants), which the wrappers pick by the spec's
+// offsets.
 //
 // C interface: one extern "C" launcher per kernel, returning cudaError_t
 // (the launch's cudaGetLastError()). Built by repro_torch/kernels/build.py
@@ -42,6 +47,8 @@
 #define THREADS 256
 #define TX 32  // threads along a row: a warp reads one contiguous span
 #define TY (THREADS / TX)
+#define NWARPS (THREADS / 32)
+#define FULL_MASK 0xffffffffu
 
 struct Taps {
   int n;
@@ -118,55 +125,175 @@ __device__ __forceinline__ Tile tile_at(int ty, int tx, int H, int W, int r,
 }
 
 // ---------------------------------------------------------------------------
-// K2 rowchunk — replaces repro/engine/policies.py::stencil_rowchunk
-// (_rowchunk_kernel). One sweep. Bound: 8 B/cell f32, 4 B/cell bf16, i.e.
-// 22.6 us f32 and 11.3 us bf16 for the 1026 x 9218 grid at 3.35 TB/s.
-// Design: the TPU loads a full-width row chunk into VMEM; a 9218-wide row
-// does not fit 227 KiB, so each block loads a (bm+2r) x (bn+2r) tile as f32
-// into shared memory once (coalesced rows), and serves every tap from it,
-// so each input byte crosses device memory about once whatever the taps.
+// Tap geometries the repo ships. K1, K2 and K3 each have a form compiled for
+// every one of them (offsets as constants, weights run-time arguments); the
+// wrappers pick it by an exact, ordered match of the spec's offsets
+// (repro_torch/engine/plan.py::TEMPORAL_GEOMETRIES), and every other spec
+// runs the general form. Offsets in tap order, as the Python table lists
+// them.
 // ---------------------------------------------------------------------------
-template <typename T, int NT>
-__global__ void __launch_bounds__(THREADS)
-    rowchunk_kernel(const T* __restrict__ u, T* __restrict__ out, int H,
-                    int W, int r, int bm, int bn, Taps tp) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const size_t plane = (size_t)H * W;
-  u += blockIdx.z * plane;
-  out += blockIdx.z * plane;
-  const Tile tl = tile_at(blockIdx.y, blockIdx.x, H, W, r, bm, bn);
-  const int TH = tl.rows + 2 * r, TW = tl.cols + 2 * r;
-  const RegTaps<NT> rt = reg_taps<NT>(tp, TW);
-  float* tile = reinterpret_cast<float*>(smem);
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  for (int a = ty; a < TH; a += TY) {
-    const T* row = u + (size_t)(tl.R0 - r + a) * W + (tl.C0 - r);
-    for (int b = tx; b < TW; b += TX) tile[a * TW + b] = to_f32(row[b]);
+struct Jacobi5 {
+  static constexpr int N = 4;
+  __host__ __device__ static constexpr int dy(int k) {
+    constexpr int a[N] = {-1, 1, 0, 0};
+    return a[k];
   }
-  __syncthreads();
-  for (int a = ty; a < tl.rows; a += TY) {
-    T* orow = out + (size_t)(tl.R0 + a) * W + tl.C0;
-    for (int b = tx; b < tl.cols; b += TX)
-      orow[b] = from_f32<T>(tap_sum(tile, (a + r) * TW + b + r, rt));
+  __host__ __device__ static constexpr int dx(int k) {
+    constexpr int a[N] = {0, 0, -1, 1};
+    return a[k];
   }
+};
+struct Laplace9 {
+  static constexpr int N = 8;
+  __host__ __device__ static constexpr int dy(int k) {
+    constexpr int a[N] = {-1, -1, -1, 0, 0, 1, 1, 1};
+    return a[k];
+  }
+  __host__ __device__ static constexpr int dx(int k) {
+    constexpr int a[N] = {-1, 0, 1, -1, 1, -1, 0, 1};
+    return a[k];
+  }
+};
+struct Radius2 {
+  static constexpr int N = 5;
+  __host__ __device__ static constexpr int dy(int k) {
+    constexpr int a[N] = {-2, -1, 0, 0, 0};
+    return a[k];
+  }
+  __host__ __device__ static constexpr int dx(int k) {
+    constexpr int a[N] = {0, 0, 0, -2, 1};
+    return a[k];
+  }
+};
+
+// What a geometry implies: the rows its taps reach (DYMIN..DYMAX, always
+// including 0), its radius, and per tap row the columns it needs from the
+// lane on the left and on the right.
+template <typename G>
+struct Geo {
+  __host__ __device__ static constexpr int dymin() {
+    int m = 0;
+    for (int k = 0; k < G::N; ++k) m = G::dy(k) < m ? G::dy(k) : m;
+    return m;
+  }
+  __host__ __device__ static constexpr int dymax() {
+    int m = 0;
+    for (int k = 0; k < G::N; ++k) m = G::dy(k) > m ? G::dy(k) : m;
+    return m;
+  }
+  __host__ __device__ static constexpr int hrad() {
+    int m = 0;
+    for (int k = 0; k < G::N; ++k) {
+      m = G::dx(k) > m ? G::dx(k) : m;
+      m = -G::dx(k) > m ? -G::dx(k) : m;
+    }
+    return m;
+  }
+  __host__ __device__ static constexpr int left(int dy) {
+    int m = 0;
+    for (int k = 0; k < G::N; ++k)
+      if (G::dy(k) == dy && -G::dx(k) > m) m = -G::dx(k);
+    return m;
+  }
+  __host__ __device__ static constexpr int right(int dy) {
+    int m = 0;
+    for (int k = 0; k < G::N; ++k)
+      if (G::dy(k) == dy && G::dx(k) > m) m = G::dx(k);
+    return m;
+  }
+  __host__ __device__ static constexpr bool used(int dy) {
+    for (int k = 0; k < G::N; ++k)
+      if (G::dy(k) == dy) return true;
+    return false;
+  }
+  static constexpr int DYMIN = dymin(), DYMAX = dymax();
+  static constexpr int NW = DYMAX - DYMIN + 1;  // rows held in registers
+  static constexpr int HR = hrad();
+  static constexpr int R = (-DYMIN > DYMAX ? -DYMIN : DYMAX) > HR
+                               ? (-DYMIN > DYMAX ? -DYMIN : DYMAX)
+                               : HR;
+};
+
+// f(std::integral_constant<int, i>{}) for i = 0 .. N-1, unrolled.
+template <typename F, int... Is>
+__device__ __forceinline__ void static_for_(F&& f,
+                                            std::integer_sequence<int, Is...>) {
+  (f(std::integral_constant<int, Is>{}), ...);
+}
+template <int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  static_for_(f, std::make_integer_sequence<int, N>{});
 }
 
 // ---------------------------------------------------------------------------
-// K3 dbuf — replaces repro/engine/policies.py::stencil_dbuf (_dbuf_kernel).
-// The same function as K2, with the same bound. What makes it dbuf: each
-// block walks a run of row tiles down one column strip, and a two-stage
-// cp.async pipeline loads tile i+1 into the other stage while tile i is
-// computed. The wrapper splits each strip into runs so the grid still
-// holds at least two blocks per SM. The TPU's two-slot asynchronous
-// write-back needs no counterpart: stores to device memory do not block.
-// Stages hold the grid dtype; 4-byte cp.async copies start at the window's
-// first column rounded down to a whole word (`shift` elements earlier).
-// Rows whose start is not 4-byte aligned (bf16 with odd W) are loaded by
-// plain loads into the same layout.
+// K2 rowchunk and K3 dbuf: one sweep out of a window in shared memory.
+//
+// K2 replaces repro/engine/policies.py::stencil_rowchunk (_rowchunk_kernel):
+// each TPU grid step DMAs one (bm + 2r)-row chunk into VMEM and serves every
+// tap from it. K3 replaces stencil_dbuf (_dbuf_kernel): the same function,
+// the next chunk's DMA started while this one computes. Bound: a sweep
+// reads the grid once and writes its interior once, 4 bytes a cell in bf16
+// and 8 in f32, 0.011281 ms and 0.022561 ms at 1026 x 9218 at 3.35 TB/s; the
+// 2*taps - 1 f32 operations a cell take a tenth of that.
+//
+// A 9218-wide row does not fit shared memory, so a block's window is a
+// (bm + 2r) x (bn + 2r) tile of the grid, kept raw in the grid dtype. Each
+// window row is copied as the 16-byte chunks that cover it, from the 16-byte
+// boundary at or below its first column: the paper grid's row pitch (18,436
+// bytes in bf16, 36,872 in f32) is no multiple of 16, so that column sits at
+// another byte of its chunk in every row, and the copies (cp.async and
+// cp.async.bulk move aligned 16-byte units) cannot realign it. At most two
+// chunks of a whole tensor stick out of its extent (a view at any offset, a
+// length that is no multiple of 16 bytes); their cells are copied one by
+// one, so nothing outside the tensor is read.
+//
+// Compute: a thread takes one 16-byte chunk of an output row at a time (8
+// bf16 or 4 f32 cells), chunks cut at the output row's own 16-byte
+// boundaries, so a whole chunk is one 16-byte store. For each tap row it
+// reads the chunk's cells and the taps' reach either side out of the window
+// with two or three aligned 16-byte shared loads, shifts them into place in
+// registers (a select by the 4-byte offset, a __funnelshift_r by the 2-byte
+// one), widens to f32 and sums the taps in tap order. A chunk at a tile's
+// left or right edge stores its own cells one by one, so neither the ring
+// nor another tile's cells are written. Work is dealt out as (row, chunk)
+// pairs over all threads, so every tile width keeps all threads busy. A
+// compiled geometry reads each tap row once and unrolls its taps; the
+// general form reads each tap's cells on their own, up to 32 taps.
+//
+// K2 (rowchunk): a block computes one tile. All its threads copy the window
+// with 16-byte cp.async, wait for all of it and compute: no pipeline, as the
+// TPU kernel waits for its one DMA. Blocks on one SM overlap one another.
+// K3 (dbuf): a block walks a run of tiles down one column strip. A producer
+// warp, a lane a window row, copies each window with one cp.async.bulk a
+// row into a ring of DBUF_STAGES windows, each completing on its stage's
+// full mbarrier; eight consumer warps compute a full stage and hand it back
+// on its empty mbarrier, so window i + 1 is in flight while window i is
+// computed. The launcher sizes the runs so the grid fills the card's
+// resident blocks, two tiles a block at least. The TPU's asynchronous
+// write-back needs no counterpart: stores do not block.
+//
+// What holds them on an H100 (PERF.md, 8-row x 1016 K2 and 16 x 504 K3
+// tiles): in bf16 the sums' instruction issue as much as memory (about
+// 210 SASS instructions a 16-byte chunk: the shifts into place, widening,
+// the taps unfused, addresses; without its sums K3 runs near copy_'s
+// time); in f32 the copy path (without its sums K3 keeps most of its).
+// Tried and not kept: a row walk with the tap rows in registers and the
+// output realigned by shuffles (96 registers, slower), two chunks a thread
+// and 512 consumers (slower), the shifts as warp-uniform branches in place
+// of selects (bf16 K3 5% faster, f32 K3 8% slower).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+#define WIN_LEAD 16    // bytes of slack before a window row's data
+#define WIN_TAIL 32    // and after it: the widest read runs 32 bytes past
+#define DBUF_STAGES 2  // K3's ring of windows
+#define DBUF_BARS 64   // bytes ahead of K3's stages: its full and empty
+                       // mbarriers
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
                "l"(src)
                : "memory");
 }
@@ -177,78 +304,388 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-
-template <typename T>
-__device__ __forceinline__ void dbuf_load(T* stage, const T* __restrict__ u,
-                                          const Tile& tl, int W, int r,
-                                          int pitch_words, bool aligned) {
-  constexpr int PER_WORD = 4 / sizeof(T);
-  const int c_lo = tl.C0 - r;
-  const int cs = c_lo & ~(PER_WORD - 1);
-  const int shift = c_lo - cs;
-  const int TH = tl.rows + 2 * r, TW = tl.cols + 2 * r;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  if (aligned) {
-    const int nw = (shift + TW + PER_WORD - 1) / PER_WORD;
-    uint32_t* words = reinterpret_cast<uint32_t*>(stage);
-    for (int a = ty; a < TH; a += TY) {
-      const uint32_t* src = reinterpret_cast<const uint32_t*>(
-          u + (size_t)(tl.R0 - r + a) * W + cs);
-      for (int k = tx; k < nw; k += TX)
-        cp_async4(words + a * pitch_words + k, src + k);
-    }
-  } else {
-    const int pitch = pitch_words * PER_WORD;
-    for (int a = ty; a < TH; a += TY) {
-      const T* src = u + (size_t)(tl.R0 - r + a) * W + c_lo;
-      for (int b = tx; b < TW; b += TX) stage[a * pitch + shift + b] = src[b];
-    }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
   }
-  cp_async_commit();
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
+// Row g of a tile's window: the bytes [p0, p1) of its columns X0 .. X1-1,
+// the 16-byte chunks [c0, c1) that cover them, and [b0, b1), those of the
+// chunks that lie whole inside the tensor's extent [lo, hi).
+struct WinRow {
+  uintptr_t p0, p1, c0, c1, b0, b1;
+};
+
+template <typename T>
+__device__ __forceinline__ WinRow win_row(const T* plane, int W, int g,
+                                          int X0, int X1, uintptr_t lo,
+                                          uintptr_t hi) {
+  WinRow w;
+  const T* row = plane + (size_t)g * W;
+  w.p0 = reinterpret_cast<uintptr_t>(row + X0);
+  w.p1 = reinterpret_cast<uintptr_t>(row + X1);
+  w.c0 = w.p0 & ~(uintptr_t)15;
+  w.c1 = (w.p1 + 15) & ~(uintptr_t)15;
+  w.b0 = w.c0 < lo ? w.c0 + 16 : w.c0;
+  w.b1 = w.c1 > hi ? w.c1 - 16 : w.c1;
+  return w;
+}
+
+// The window cells of the (at most two) chunks of row `w` that stick out of
+// the tensor's extent, copied one by one into the row's data at `dst`.
+template <typename T>
+__device__ void copy_edge_cells(unsigned char* dst, const WinRow& w) {
+  using Bits = typename std::conditional<sizeof(T) == 2, uint16_t,
+                                         uint32_t>::type;
+  auto cells = [&](uintptr_t a, uintptr_t b) {
+    for (uintptr_t p = a; p < b; p += sizeof(T))
+      *reinterpret_cast<Bits*>(dst + (p - w.c0)) =
+          *reinterpret_cast<const Bits*>(p);
+  };
+  if (w.b0 != w.c0) cells(w.p0, w.c0 + 16 < w.p1 ? w.c0 + 16 : w.p1);
+  if (w.b1 != w.c1) cells(w.c1 - 16 > w.p0 ? w.c1 - 16 : w.p0, w.p1);
+}
+
+// K2's fill: every thread copies chunks with 16-byte cp.async (a warp a
+// window row), then the block waits for all of them.
+template <typename T>
+__device__ __forceinline__ void window_fill_all(unsigned char* win, int pitch,
+                                                const T* plane, int W, int r,
+                                                const Tile& tl, uintptr_t lo,
+                                                uintptr_t hi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int X0 = tl.C0 - r, X1 = tl.C0 + tl.cols + r;
+  for (int a = warp; a < tl.rows + 2 * r; a += NWARPS) {
+    const WinRow w = win_row(plane, W, tl.R0 - r + a, X0, X1, lo, hi);
+    unsigned char* dst = win + a * pitch + WIN_LEAD;
+    for (uintptr_t p = w.b0 + 16 * lane; p < w.b1; p += 16 * 32)
+      cp_async16(dst + (p - w.c0), reinterpret_cast<const void*>(p));
+    if (lane == 0) copy_edge_cells<T>(dst, w);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// K3's fill, by the producer warp, a lane a window row: the cells that
+// stick out first, then one arrival (lane 0's) that expects the bulk bytes,
+// then one bulk copy a row.
+template <typename T>
+__device__ __forceinline__ void window_fill_bulk(unsigned char* win,
+                                                 int pitch, const T* plane,
+                                                 int W, int r, const Tile& tl,
+                                                 uintptr_t lo, uintptr_t hi,
+                                                 uint64_t* full, int lane) {
+  const int X0 = tl.C0 - r, X1 = tl.C0 + tl.cols + r;
+  const int rows = tl.rows + 2 * r;
+  uint32_t bytes = 0;
+  bool edges = false;
+  for (int a = lane; a < rows; a += 32) {
+    const WinRow w = win_row(plane, W, tl.R0 - r + a, X0, X1, lo, hi);
+    if (w.b1 > w.b0) bytes += (uint32_t)(w.b1 - w.b0);
+    if (w.b0 != w.c0 || w.b1 != w.c1) {
+      copy_edge_cells<T>(win + a * pitch + WIN_LEAD, w);
+      edges = true;
+    }
+  }
+  bytes = __reduce_add_sync(FULL_MASK, bytes);
+  // The ring's later bulk copies into these bytes come after these stores.
+  if (__any_sync(FULL_MASK, edges))
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncwarp();  // the lanes' stores before lane 0's arrival
+  if (lane == 0) mbar_arrive_expect_tx(full, bytes);
+  __syncwarp();
+  for (int a = lane; a < rows; a += 32) {
+    const WinRow w = win_row(plane, W, tl.R0 - r + a, X0, X1, lo, hi);
+    if (w.b1 > w.b0)
+      bulk_load(win + a * pitch + WIN_LEAD + (w.b0 - w.c0),
+                reinterpret_cast<const void*>(w.b0),
+                (uint32_t)(w.b1 - w.b0), full);
+  }
+}
+
+// The NWD 32-bit words that start at byte `off` of the window (an offset of
+// an element, so 4-byte aligned in f32 and 2-byte in bf16: HALF), from the
+// aligned 16-byte shared loads at and after the boundary below `off`.
+template <int NWD, bool HALF>
+__device__ __forceinline__ void window_words(const unsigned char* win,
+                                             uint32_t off,
+                                             uint32_t (&y)[NWD]) {
+  constexpr int NZ = NWD + (HALF ? 1 : 0);  // words before the 2-byte shift
+  constexpr int NCH = (NZ + 6) / 4;         // loads: the selects reach NZ + 2
+  static_assert(NCH <= 1 + WIN_TAIL / 16, "a read would leave the row");
+  uint32_t x[4 * NCH];
+  const unsigned char* a = win + (off & ~15u);
+#pragma unroll
+  for (int c = 0; c < NCH; ++c) {
+    const uint4 v = *reinterpret_cast<const uint4*>(a + 16 * c);
+    x[4 * c] = v.x;
+    x[4 * c + 1] = v.y;
+    x[4 * c + 2] = v.z;
+    x[4 * c + 3] = v.w;
+  }
+  // Words q .. q+NWD-1 of x for q = (off >> 2) & 3 (two selects a word),
+  // then the 2-byte shift.
+  const bool q2 = off & 8, q1 = off & 4;
+  uint32_t z1[NZ + 1], z[NZ];
+#pragma unroll
+  for (int i = 0; i <= NZ; ++i) z1[i] = q2 ? x[i + 2] : x[i];
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) z[i] = q1 ? z1[i + 1] : z1[i];
+  if constexpr (HALF) {
+    const uint32_t f = (off & 2) * 8;
+#pragma unroll
+    for (int i = 0; i < NWD; ++i) y[i] = __funnelshift_r(z[i], z[i + 1], f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NWD; ++i) y[i] = z[i];
+  }
+}
+
+// Cell m of words `y` as f32 (widening bf16 is exact).
+template <typename T, int NWD>
+__device__ __forceinline__ float cell(const uint32_t (&y)[NWD], int m) {
+  if constexpr (sizeof(T) == 4) return __uint_as_float(y[m]);
+  return __uint_as_float(m & 1 ? y[m / 2] & 0xffff0000u : y[m / 2] << 16);
+}
+
+// acc (= or +=) cells * w, one rounded multiply and one rounded add a cell.
+template <int V>
+__device__ __forceinline__ void tap(float (&acc)[V], const float* c, float w,
+                                    bool first) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const float term = __fmul_rn(c[j], w);
+    acc[j] = first ? term : __fadd_rn(acc[j], term);
+  }
+}
+
+// The packed 16 bytes of `acc` in the grid dtype, cells in order.
+template <typename T>
+__device__ __forceinline__ void pack(const float* acc, uint32_t (&v)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 4) {
+      v[i] = __float_as_uint(acc[i]);
+    } else {
+      v[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(acc[2 * i])) |
+             ((uint32_t)__bfloat16_as_ushort(
+                  __float2bfloat16_rn(acc[2 * i + 1]))
+              << 16);
+    }
+  }
+}
+
+// The taps of compiled geometry G for one chunk whose first cell is window
+// column e0: each tap row's cells read once, the taps unrolled in order.
+template <typename T, typename G>
+struct GeoTaps {
+  static constexpr int E = sizeof(T), V = 16 / E;
+  const Taps& tp;
+  template <typename SX>
+  __device__ __forceinline__ void operator()(const unsigned char* win, SX sx,
+                                             int e0, float (&acc)[V]) const {
+    using P = Geo<G>;
+    constexpr int HR = P::HR;
+    float x[P::NW][V + 2 * HR];  // tap row DYMIN + i; cell HR + j is j
+    static_for<P::NW>([&](auto ic) {
+      constexpr int i = decltype(ic)::value, dy = P::DYMIN + i;
+      if constexpr (P::used(dy)) {
+        constexpr int L = P::left(dy), NC = V + L + P::right(dy);
+        constexpr int NWD = (NC * E + 3) / 4;
+        uint32_t y[NWD];
+        window_words<NWD, E == 2>(win, sx(dy) + (e0 - L) * E, y);
+#pragma unroll
+        for (int m = 0; m < NC; ++m) x[i][HR - L + m] = cell<T>(y, m);
+      }
+    });
+    static_for<G::N>([&](auto kc) {
+      constexpr int k = decltype(kc)::value;
+      tap(acc, &x[G::dy(k) - P::DYMIN][HR + G::dx(k)], tp.w[k], k == 0);
+    });
+  }
+};
+
+// Any spec's taps (up to NT): each tap's V cells read on their own.
 template <typename T, int NT>
+struct RunTaps {
+  static constexpr int E = sizeof(T), V = 16 / E;
+  const Taps& tp;
+  template <typename SX>
+  __device__ __forceinline__ void operator()(const unsigned char* win, SX sx,
+                                             int e0, float (&acc)[V]) const {
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      if (k < tp.n) {
+        uint32_t y[4];
+        window_words<4, E == 2>(win, sx(tp.dy[k]) + (e0 + tp.dx[k]) * E, y);
+        float c[V];
+#pragma unroll
+        for (int j = 0; j < V; ++j) c[j] = cell<T>(y, j);
+        tap(acc, c, tp.w[k], k == 0);
+      }
+    }
+  }
+};
+
+// Cells jlo .. jhi-1 of the 16-byte aligned chunk at p: one 16-byte store
+// when that is all of it, else one store a cell.
+template <typename T>
+__device__ __forceinline__ void store_chunk(T* p, const float* acc, int jlo,
+                                            int jhi) {
+  constexpr int V = 16 / sizeof(T);
+  if (jlo == 0 && jhi == V) {
+    uint32_t v[4];
+    pack<T>(acc, v);
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < V; ++j)
+    if (j >= jlo && j < jhi) p[j] = from_f32<T>(acc[j]);
+}
+
+// One sweep of tile `tl` out of its window `win`, whose row a (pitch bytes
+// apart) holds grid row tl.R0 - r + a from byte WIN_LEAD on, starting at
+// the 16-byte boundary at or below column X0 = tl.C0 - r. Thread `tid` of
+// `nthr` takes the (row, chunk) pairs tid, tid + nthr, ... of the tile.
+template <typename T, typename Sum>
+__device__ __forceinline__ void sweep_window(const unsigned char* win,
+                                             int pitch, const T* plane,
+                                             T* oplane, int W, int r,
+                                             const Tile& tl, int tid,
+                                             int nthr, const Sum& sum) {
+  constexpr int E = sizeof(T), V = 16 / E;
+  const int nk = (tl.cols * E + 31 - E) / 16;  // chunks a row can touch
+  // Byte of X0's chunk at which X0 sits in grid row g: ((x0 + g*rb) & 15).
+  const uint32_t x0 =
+      (uint32_t)reinterpret_cast<uintptr_t>(plane + (tl.C0 - r));
+  const uint32_t rb = (uint32_t)W * E;
+  int row = tid / nk, k = tid % nk;
+  const int dr = nthr / nk, dk = nthr % nk;
+  while (row < tl.rows) {
+    const int g = tl.R0 + row;
+    T* orow = oplane + (size_t)g * W + tl.C0;
+    const int osh = (int)(reinterpret_cast<uintptr_t>(orow) & 15);
+    const int d = (16 * k - osh) / E;  // the chunk's first cell, from C0
+    if (d < tl.cols) {
+      auto sx = [&](int dy) -> uint32_t {  // window offset of X0, row g+dy
+        return (uint32_t)((row + r + dy) * pitch + WIN_LEAD) +
+               ((x0 + (uint32_t)(g + dy) * rb) & 15u);
+      };
+      float acc[V];
+      sum(win, sx, r + d, acc);
+      store_chunk(orow + d, acc, d < 0 ? -d : 0,
+                  tl.cols - d < V ? tl.cols - d : V);
+    }
+    row += dr;
+    k += dk;
+    if (k >= nk) {
+      k -= nk;
+      ++row;
+    }
+  }
+}
+
+template <typename T, typename Sum>
 __global__ void __launch_bounds__(THREADS)
+    rowchunk_kernel(const T* __restrict__ u, T* __restrict__ out, int H,
+                    int W, int r, int bm, int bn, int pitch, Taps tp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t plane = (size_t)H * W;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(u);
+  const uintptr_t hi = reinterpret_cast<uintptr_t>(u + gridDim.z * plane);
+  u += blockIdx.z * plane;
+  out += blockIdx.z * plane;
+  const Tile tl = tile_at(blockIdx.y, blockIdx.x, H, W, r, bm, bn);
+  window_fill_all(smem, pitch, u, W, r, tl, lo, hi);
+  sweep_window(smem, pitch, u, out, W, r, tl, threadIdx.x, THREADS,
+               Sum{tp});
+}
+
+template <typename T, typename Sum>
+__global__ void __launch_bounds__(THREADS + 32)
     dbuf_kernel(const T* __restrict__ u, T* __restrict__ out, int H, int W,
                 int r, int bm, int bn, int row_tiles, int tiles_per_block,
-                int pitch_words, bool aligned, Taps tp) {
+                int pitch, Taps tp) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int PER_WORD = 4 / sizeof(T);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);  // stage copied in
+  uint64_t* empty = full + DBUF_STAGES;                // stage computed
+  unsigned char* stages = smem + DBUF_BARS;
+  const int stage_bytes = (bm + 2 * r) * pitch;
   const size_t plane = (size_t)H * W;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(u);
+  const uintptr_t hi = reinterpret_cast<uintptr_t>(u + gridDim.z * plane);
   u += blockIdx.z * plane;
   out += blockIdx.z * plane;
   const int first = blockIdx.y * tiles_per_block;
   const int last = min(first + tiles_per_block, row_tiles);
   if (first >= last) return;
-  const int pitch = pitch_words * PER_WORD;
-  const RegTaps<NT> rt = reg_taps<NT>(tp, pitch);
-  T* const stage0 = reinterpret_cast<T*>(smem);
-  T* const stage1 = stage0 + (bm + 2 * r) * pitch;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-
-  dbuf_load(stage0, u, tile_at(first, blockIdx.x, H, W, r, bm, bn), W, r,
-            pitch_words, aligned);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DBUF_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= THREADS) {  // the producer warp
+    const int lane = threadIdx.x - THREADS;
+    for (int i = first; i < last; ++i) {
+      const int n = i - first, s = n % DBUF_STAGES;
+      if (n >= DBUF_STAGES) mbar_wait(&empty[s], (n / DBUF_STAGES - 1) & 1);
+      window_fill_bulk(stages + s * stage_bytes, pitch, u, W, r,
+                       tile_at(i, blockIdx.x, H, W, r, bm, bn), lo, hi,
+                       &full[s], lane);
+    }
+    return;
+  }
+  const Sum sum{tp};
   for (int i = first; i < last; ++i) {
-    const bool odd = (i - first) & 1;
-    if (i + 1 < last) {
-      dbuf_load(odd ? stage0 : stage1, u,
-                tile_at(i + 1, blockIdx.x, H, W, r, bm, bn), W, r,
-                pitch_words, aligned);
-      cp_async_wait<1>();  // this tile's group is done; the next in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const Tile tl = tile_at(i, blockIdx.x, H, W, r, bm, bn);
-    const int shift = (tl.C0 - r) - ((tl.C0 - r) & ~(PER_WORD - 1));
-    const T* stage = odd ? stage1 : stage0;
-    for (int a = ty; a < tl.rows; a += TY) {
-      T* orow = out + (size_t)(tl.R0 + a) * W + tl.C0;
-      for (int b = tx; b < tl.cols; b += TX)
-        orow[b] = from_f32<T>(
-            tap_sum(stage, (a + r) * pitch + shift + b + r, rt));
-    }
-    __syncthreads();  // the next iteration's prefetch overwrites this stage
+    const int n = i - first, s = n % DBUF_STAGES;
+    mbar_wait(&full[s], (n / DBUF_STAGES) & 1);
+    sweep_window(stages + s * stage_bytes, pitch, u, out, W, r,
+                 tile_at(i, blockIdx.x, H, W, r, bm, bn), threadIdx.x,
+                 THREADS, sum);
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(&empty[s]);
   }
 }
 
@@ -385,99 +822,8 @@ __global__ void __launch_bounds__(THREADS)
 // ---------------------------------------------------------------------------
 #define QUADS 32           // 4-column quads a tile row holds: one warp
 #define TROW (4 * QUADS)   // f32 cells a row of the shared-memory tile
-#define NWARPS (THREADS / 32)
-#define FULL_MASK 0xffffffffu
 
 enum { PIN_NONE = 0, PIN_RING = 1, PIN_MASK = 2 };
-
-// Tap geometries: offsets in tap order, as the Python table lists them.
-struct Jacobi5 {
-  static constexpr int N = 4;
-  __host__ __device__ static constexpr int dy(int k) {
-    constexpr int a[N] = {-1, 1, 0, 0};
-    return a[k];
-  }
-  __host__ __device__ static constexpr int dx(int k) {
-    constexpr int a[N] = {0, 0, -1, 1};
-    return a[k];
-  }
-};
-struct Laplace9 {
-  static constexpr int N = 8;
-  __host__ __device__ static constexpr int dy(int k) {
-    constexpr int a[N] = {-1, -1, -1, 0, 0, 1, 1, 1};
-    return a[k];
-  }
-  __host__ __device__ static constexpr int dx(int k) {
-    constexpr int a[N] = {-1, 0, 1, -1, 1, -1, 0, 1};
-    return a[k];
-  }
-};
-struct Radius2 {
-  static constexpr int N = 5;
-  __host__ __device__ static constexpr int dy(int k) {
-    constexpr int a[N] = {-2, -1, 0, 0, 0};
-    return a[k];
-  }
-  __host__ __device__ static constexpr int dx(int k) {
-    constexpr int a[N] = {0, 0, 0, -2, 1};
-    return a[k];
-  }
-};
-
-// What a geometry implies: the rows its taps reach (DYMIN..DYMAX, always
-// including 0), its radius, and per tap row the columns it needs from the
-// lane on the left and on the right.
-template <typename G>
-struct Geo {
-  __host__ __device__ static constexpr int dymin() {
-    int m = 0;
-    for (int k = 0; k < G::N; ++k) m = G::dy(k) < m ? G::dy(k) : m;
-    return m;
-  }
-  __host__ __device__ static constexpr int dymax() {
-    int m = 0;
-    for (int k = 0; k < G::N; ++k) m = G::dy(k) > m ? G::dy(k) : m;
-    return m;
-  }
-  __host__ __device__ static constexpr int hrad() {
-    int m = 0;
-    for (int k = 0; k < G::N; ++k) {
-      m = G::dx(k) > m ? G::dx(k) : m;
-      m = -G::dx(k) > m ? -G::dx(k) : m;
-    }
-    return m;
-  }
-  __host__ __device__ static constexpr int left(int dy) {
-    int m = 0;
-    for (int k = 0; k < G::N; ++k)
-      if (G::dy(k) == dy && -G::dx(k) > m) m = -G::dx(k);
-    return m;
-  }
-  __host__ __device__ static constexpr int right(int dy) {
-    int m = 0;
-    for (int k = 0; k < G::N; ++k)
-      if (G::dy(k) == dy && G::dx(k) > m) m = G::dx(k);
-    return m;
-  }
-  static constexpr int DYMIN = dymin(), DYMAX = dymax();
-  static constexpr int NW = DYMAX - DYMIN + 1;  // rows held in registers
-  static constexpr int HR = hrad();
-  static constexpr int R = (-DYMIN > DYMAX ? -DYMIN : DYMAX) > HR
-                               ? (-DYMIN > DYMAX ? -DYMIN : DYMAX)
-                               : HR;
-};
-
-// f(std::integral_constant<int, i>{}) for i = 0 .. N-1, unrolled.
-template <typename F, int... Is>
-__device__ __forceinline__ void static_for_(F&& f,
-                                            std::integer_sequence<int, Is...>) {
-  (f(std::integral_constant<int, Is>{}), ...);
-}
-template <int N, typename F>
-__device__ __forceinline__ void static_for(F&& f) {
-  static_for_(f, std::make_integer_sequence<int, N>{});
-}
 
 __device__ __forceinline__ void lds_quad(const float* s, float (&q)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(s);
@@ -805,45 +1151,125 @@ static cudaError_t allow_smem(K kernel, int smem) {
                               smem);
 }
 
-extern "C" cudaError_t repro_rowchunk(const void* u, void* out, int dtype,
-                                      int batch, int H, int W, int r, int bm,
-                                      int bn, int row_tiles, int col_tiles,
-                                      int taps, const int* dy, const int* dx,
+// The least window pitch for tiles bn cells wide: the row's 16-byte chunks
+// wherever its first column falls in a chunk, and the slack either side
+// (repro_torch/engine/plan.py::window_pitch).
+static int window_pitch(int bn, int r, int esz) {
+  const int span = (bn + 2 * r) * esz;
+  return WIN_LEAD + (span + 16 - esz + 15) / 16 * 16 + WIN_TAIL;
+}
+
+template <typename G>
+static bool same_offsets(const Taps& tp) {
+  if (tp.n != G::N) return false;
+  for (int k = 0; k < G::N; ++k)
+    if (tp.dy[k] != G::dy(k) || tp.dx[k] != G::dx(k)) return false;
+  return true;
+}
+
+// Calls f(Type<T>{}, Type<Sum>{}) for the grid dtype and the spec's taps:
+// the compiled geometry `geometry` (0 = Jacobi5, 1 = Laplace9, 2 = Radius2,
+// the order of TEMPORAL_GEOMETRIES), whose offsets the spec's must equal,
+// or for -1 the general form at the smallest tap bound that holds them.
+template <typename F>
+static cudaError_t dispatch_sweep(int dtype, int geometry, const Taps& tp,
+                                  F f) {
+  if (tp.n < 1 || tp.n > MAX_TAPS) return cudaErrorInvalidValue;
+  auto by_taps = [&](auto type) -> cudaError_t {
+    using T = typename decltype(type)::type;
+    auto geo = [&](auto g) -> cudaError_t {
+      using G = typename decltype(g)::type;
+      if (!same_offsets<G>(tp)) return cudaErrorInvalidValue;
+      return f(type, Type<GeoTaps<T, G>>{});
+    };
+    switch (geometry) {
+      case -1: break;
+      case 0: return geo(Type<Jacobi5>{});
+      case 1: return geo(Type<Laplace9>{});
+      case 2: return geo(Type<Radius2>{});
+      default: return cudaErrorInvalidValue;
+    }
+    if (tp.n <= 4) return f(type, Type<RunTaps<T, 4>>{});
+    if (tp.n <= 8) return f(type, Type<RunTaps<T, 8>>{});
+    if (tp.n <= 16) return f(type, Type<RunTaps<T, 16>>{});
+    return f(type, Type<RunTaps<T, MAX_TAPS>>{});
+  };
+  if (dtype == 0) return by_taps(Type<float>{});
+  if (dtype == 1) return by_taps(Type<__nv_bfloat16>{});
+  return cudaErrorInvalidValue;
+}
+
+// K2. Refuses a pitch below window_pitch and shared memory short of the
+// window's (bm + 2r) rows.
+extern "C" cudaError_t repro_rowchunk(const void* u, void* out, int geometry,
+                                      int dtype, int batch, int H, int W,
+                                      int r, int bm, int bn, int row_tiles,
+                                      int col_tiles, int pitch, int taps,
+                                      const int* dy, const int* dx,
                                       const float* w, int smem,
                                       void* stream) {
+  const int esz = dtype == 0 ? 4 : 2;
+  if (bm < 1 || bn < 1 || pitch % 16 || pitch < window_pitch(bn, r, esz) ||
+      smem < (bm + 2 * r) * pitch)
+    return cudaErrorInvalidValue;
   const Taps tp = make_taps(taps, dy, dx, w);
-  return dispatch(dtype, taps, [&](auto type, auto nt) {
+  return dispatch_sweep(dtype, geometry, tp, [&](auto type, auto sum) {
     using T = typename decltype(type)::type;
-    auto kernel = rowchunk_kernel<T, decltype(nt)::value>;
+    auto kernel = rowchunk_kernel<T, typename decltype(sum)::type>;
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
     kernel<<<dim3(col_tiles, row_tiles, batch), THREADS, smem,
              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(u), static_cast<T*>(out), H, W, r, bm, bn, tp);
+        static_cast<const T*>(u), static_cast<T*>(out), H, W, r, bm, bn,
+        pitch, tp);
     return cudaGetLastError();
   });
 }
 
-extern "C" cudaError_t repro_dbuf(const void* u, void* out, int dtype,
-                                  int batch, int H, int W, int r, int bm,
-                                  int bn, int row_tiles, int col_tiles,
-                                  int tiles_per_block, int pitch_words,
-                                  int taps, const int* dy, const int* dx,
-                                  const float* w, int smem, void* stream) {
-  if (tiles_per_block < 1) return cudaErrorInvalidValue;
+// K3: blocks of THREADS consumers and one producer warp, each walking up to
+// tiles_per_block row tiles of one column strip; 0 takes as many tiles a
+// block as leave the card's resident blocks (by occupancy) all in use, and
+// at least two.
+// Refuses what K2 refuses, against DBUF_STAGES windows behind DBUF_BARS.
+extern "C" cudaError_t repro_dbuf(const void* u, void* out, int geometry,
+                                  int dtype, int batch, int H, int W, int r,
+                                  int bm, int bn, int row_tiles,
+                                  int col_tiles, int tiles_per_block,
+                                  int pitch, int taps, const int* dy,
+                                  const int* dx, const float* w, int smem,
+                                  void* stream) {
+  const int esz = dtype == 0 ? 4 : 2;
+  if (tiles_per_block < 0 || bm < 1 || bn < 1 || pitch % 16 ||
+      pitch < window_pitch(bn, r, esz) ||
+      smem < DBUF_BARS + DBUF_STAGES * (bm + 2 * r) * pitch)
+    return cudaErrorInvalidValue;
   const Taps tp = make_taps(taps, dy, dx, w);
-  return dispatch(dtype, taps, [&](auto type, auto nt) {
+  return dispatch_sweep(dtype, geometry, tp, [&](auto type, auto sum) {
     using T = typename decltype(type)::type;
-    auto kernel = dbuf_kernel<T, decltype(nt)::value>;
+    auto kernel = dbuf_kernel<T, typename decltype(sum)::type>;
     cudaError_t e = allow_smem(kernel, smem);
     if (e != cudaSuccess) return e;
-    const bool aligned = ((size_t)W * sizeof(T)) % 4 == 0 &&
-                         reinterpret_cast<uintptr_t>(u) % 4 == 0;
+    if (tiles_per_block == 0) {  // as many runs as fill the card
+      int per_sm = 0, sms = 0, dev = 0;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        THREADS + 32, smem);
+      if (e == cudaSuccess) e = cudaGetDevice(&dev);
+      if (e == cudaSuccess)
+        e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (e != cudaSuccess) return e;
+      const int strips = col_tiles * batch;
+      int want = (per_sm * sms + strips - 1) / strips;
+      want = want < 1 ? 1 : want > row_tiles ? row_tiles : want;
+      tiles_per_block = row_tiles / want;
+      // At least two tiles a block where a strip has them: the ring's
+      // second stage is what overlaps a copy with the sums.
+      if (tiles_per_block < 2 && row_tiles >= 2) tiles_per_block = 2;
+    }
     const int runs = (row_tiles + tiles_per_block - 1) / tiles_per_block;
-    kernel<<<dim3(col_tiles, runs, batch), THREADS, smem,
+    kernel<<<dim3(col_tiles, runs, batch), THREADS + 32, smem,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(u), static_cast<T*>(out), H, W, r, bm, bn,
-        row_tiles, tiles_per_block, pitch_words, aligned, tp);
+        row_tiles, tiles_per_block, pitch, tp);
     return cudaGetLastError();
   });
 }

@@ -39,7 +39,9 @@ from repro_torch.engine.plan import (  # noqa: F401
     plan_for,
 )
 from repro_torch.engine.policies import (  # noqa: F401
+    DBUF_VARIANTS,
     LAUNCHES,
+    ROWCHUNK_VARIANTS,
     TEMPORAL_VARIANTS,
     launch_shifted_views,
     reset_launch_counts,

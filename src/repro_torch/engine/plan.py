@@ -39,14 +39,15 @@ DEFAULT_T = 8      # temporal fusion depth (sweeps per HBM round-trip)
 #: tile of ``python -m repro_torch.launch.tiles`` on an H100 at 1026 x 9218
 #: (see PERF.md). ``shifted`` streams without a tile; its tile only counts
 #: blocks for ``auto``.
-GPU_TILES = {"shifted": (32, 128), "rowchunk": (16, 256),
-             "dbuf": (64, 256), "temporal": (40, 112)}
+GPU_TILES = {"shifted": (32, 128), "rowchunk": (8, 1016),
+             "dbuf": (16, 504), "temporal": (40, 112)}
 #: Most taps a CUDA kernel takes (the tap table is a kernel argument).
 MAX_TAPS = 32
-#: Tap geometries K1 is compiled for (``csrc/stencil.cu``: ``Jacobi5``,
-#: ``Laplace9``, ``Radius2``, in this order): offsets in tap order. A spec
-#: whose offsets equal one of these, in order, runs that compiled kernel;
-#: every other spec runs the general K1 (:func:`temporal_variant`).
+#: Tap geometries K1, K2 and K3 are compiled for (``csrc/stencil.cu``:
+#: ``Jacobi5``, ``Laplace9``, ``Radius2``, in this order): offsets in tap
+#: order. A spec whose offsets equal one of these, in order, runs that
+#: compiled kernel; every other spec runs the general one
+#: (:func:`temporal_variant`).
 TEMPORAL_GEOMETRIES = {
     "jacobi5": ((-1, 0), (1, 0), (0, -1), (0, 1)),
     "laplace9": ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1),
@@ -56,6 +57,12 @@ TEMPORAL_GEOMETRIES = {
 #: f32 cells a row of the compiled K1's shared-memory tile holds (one warp
 #: of 4-column quads): its window, ``bn + 2·t·r``, must fit in it.
 TEMPORAL_ROW = 128
+#: Bytes of slack before and after each row of a K2/K3 window in shared
+#: memory (``csrc/stencil.cu``: ``WIN_LEAD``, ``WIN_TAIL``).
+WINDOW_LEAD, WINDOW_TAIL = 16, 32
+#: K3's ring: windows a block keeps in flight, and the bytes of mbarriers
+#: ahead of them (``DBUF_STAGES``, ``DBUF_BARS``).
+DBUF_STAGES, DBUF_BARS = 2, 64
 
 
 class PlanError(ValueError):
@@ -95,20 +102,34 @@ def tiles_2d(device: DeviceModel) -> bool:
     return device.backend == "gpu"
 
 
-def dbuf_pitch_words(bn: int, r: int, dtype_bytes: int) -> int:
-    """32-bit words per row of one dbuf stage.
+def window_pitch(bn: int, r: int, dtype_bytes: int) -> int:
+    """Bytes a row of a K2/K3 window takes in shared memory.
 
-    The stage is filled by 4-byte ``cp.async`` copies, so a row starts at
-    the window's first column rounded down to a whole word and holds up to
-    one extra element on each side.
+    A window row is copied raw as the 16-byte chunks that cover its
+    ``bn + 2r`` cells, from the 16-byte boundary at or below its first
+    cell, wherever in its chunk that cell falls, with slack either side for
+    the kernels' aligned reads.
     """
-    per_word = 4 // dtype_bytes
-    return -(-(bn + 2 * r + per_word - 1) // per_word)
+    span = (bn + 2 * r) * dtype_bytes
+    return (WINDOW_LEAD + -(-(span + 16 - dtype_bytes) // 16) * 16
+            + WINDOW_TAIL)
+
+
+def sweep_bn(policy: str, dtype_bytes: int, spec: StencilSpec, bm: int,
+             bn: int, device: DeviceModel) -> int:
+    """K2's or K3's default tile width for ``bm`` rows: ``bn`` halved until
+    the shared memory leaves room for four blocks on a core (an SM), so
+    a tall requested tile does not leave the card a block an SM."""
+    while bn > 1 and smem_2d(policy, dtype_bytes, spec, bm, bn,
+                             1)[1] > device.fast_memory_bytes // 4:
+        bn //= 2
+    return bn
 
 
 def temporal_variant(spec: StencilSpec) -> str:
-    """The K1 kernel that runs ``spec``: the compiled geometry whose
-    offsets equal ``spec.offsets`` in order, else ``"general"``."""
+    """The K1 kernel that runs ``spec`` (and the K2 and K3 kernel): the
+    compiled geometry whose offsets equal ``spec.offsets`` in order, else
+    ``"general"``."""
     for name, offsets in TEMPORAL_GEOMETRIES.items():
         if tuple(spec.offsets) == offsets:
             return name
@@ -120,19 +141,21 @@ def smem_2d(policy: str, dtype_bytes: int, spec: StencilSpec, bm: int,
     """(halo, shared-memory bytes) of one 2-D tile of ``policy``.
 
     The bytes are the dynamic shared memory the CUDA launcher allocates:
-    the f32 tile (rowchunk, and two of them for temporal) or two stages
-    in the grid dtype (dbuf). A compiled K1 geometry's two f32 tiles have
-    rows of :data:`TEMPORAL_ROW` cells whatever ``bn``.
+    one window of ``bm + 2r`` rows of :func:`window_pitch` bytes in the
+    grid dtype (rowchunk), :data:`DBUF_STAGES` of them behind their
+    mbarriers (dbuf), or two f32 tiles (temporal). A compiled K1
+    geometry's tiles have rows of :data:`TEMPORAL_ROW` cells whatever
+    ``bn``.
     """
     r = spec.radius
     if policy == "shifted":
         # Streams the per-tap copies straight from device memory.
         return 0, 0
+    window = (bm + 2 * r) * window_pitch(bn, r, dtype_bytes)
     if policy == "rowchunk":
-        return r, (bm + 2 * r) * (bn + 2 * r) * 4
+        return r, window
     if policy == "dbuf":
-        return r, 2 * (bm + 2 * r) * dbuf_pitch_words(
-            bn, r, dtype_bytes) * 4
+        return r, DBUF_BARS + DBUF_STAGES * window
     if policy == "temporal":
         # Two f32 ping-pong tiles; a masked run adds one byte per cell.
         width = (TEMPORAL_ROW if temporal_variant(spec) != "general"
@@ -303,10 +326,12 @@ def plan_for(shape, dtype, spec: StencilSpec, policy: str, *,
     ``bm``/``bn``/``t`` are requests; the plan holds the realized values.
     Under the row-block rule ``bm`` snaps to the largest interior-row
     divisor and ``bn`` is the interior width; under the 2-D rule both are
-    clipped to the interior and default to :data:`GPU_TILES`; a compiled
-    K1 geometry also clips ``bn`` to ``TEMPORAL_ROW - 2·t·r``. ``t`` is
-    forced to 1 for non-temporal policies. ``device`` is a registry name or
-    model; None plans against :func:`~repro_torch.engine.device.detect`.
+    clipped to the interior and default to :data:`GPU_TILES` (K2's and
+    K3's ``bn`` then halved by :func:`sweep_bn` for a tall ``bm``); a
+    compiled K1 geometry also clips ``bn`` to ``TEMPORAL_ROW - 2·t·r``.
+    ``t`` is forced to 1 for non-temporal policies. ``device`` is a
+    registry name or model; None plans against
+    :func:`~repro_torch.engine.device.detect`.
     """
     dev = get_device(device)
     t_eff = (t if t is not None else DEFAULT_T) if policy == "temporal" else 1
@@ -315,6 +340,9 @@ def plan_for(shape, dtype, spec: StencilSpec, policy: str, *,
         bm = tile[0] if tiles_2d(dev) else DEFAULT_BM
     if bn is None:
         bn = tile[1]
+        if tiles_2d(dev) and policy in ("rowchunk", "dbuf"):
+            bn = sweep_bn(policy, getattr(torch, dtype_name(dtype)).itemsize,
+                          spec, bm, bn, dev)
     misses0 = _metrics.counter("engine.plan.miss").value
     plan = _plan_cached(tuple(int(s) for s in shape), dtype_name(dtype),
                         spec, policy, int(bm), int(bn), int(t_eff), dev,

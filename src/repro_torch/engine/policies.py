@@ -12,10 +12,12 @@ the same f32 operations in the same order, so the two agree bit for bit.
       (K2).
   ``dbuf``      — rowchunk with a two-stage prefetching data mover (K3).
   ``temporal``  — ``t`` sweeps fused per round-trip through device memory,
-      with a ``t·r`` halo (K1). A spec whose offsets equal a compiled
-      geometry's in order (``plan.TEMPORAL_GEOMETRIES``) runs that
-      geometry's kernel, any other spec the general one;
-      :data:`TEMPORAL_VARIANTS` counts which.
+      with a ``t·r`` halo (K1).
+
+K1, K2 and K3 each run a kernel compiled for a spec's tap geometry when
+its offsets equal one of ``plan.TEMPORAL_GEOMETRIES`` in order, else
+their general kernel; :data:`TEMPORAL_VARIANTS`,
+:data:`ROWCHUNK_VARIANTS` and :data:`DBUF_VARIANTS` count which.
 
 All grids are ringed ``(..., H, W)`` tensors; leading dimensions are a
 batch (one kernel launch, batch along ``gridDim.z``). Kernels accumulate
@@ -39,9 +41,8 @@ import torch
 from repro_torch.core.stencil import StencilSpec, f32, interior, tap_sum
 from repro_torch.engine.device import DeviceModel  # noqa: F401
 from repro_torch.engine.plan import (DEFAULT_T, TEMPORAL_GEOMETRIES,
-                                     ExecutionPlan, PlanError,
-                                     dbuf_pitch_words, plan_for,
-                                     temporal_variant)
+                                     ExecutionPlan, PlanError, plan_for,
+                                     temporal_variant, window_pitch)
 
 #: Kernel launches per policy since the last :func:`reset_launch_counts`.
 LAUNCHES: dict[str, int] = {"shifted": 0, "rowchunk": 0, "dbuf": 0,
@@ -50,6 +51,11 @@ LAUNCHES: dict[str, int] = {"shifted": 0, "rowchunk": 0, "dbuf": 0,
 #: Their sum is ``LAUNCHES["temporal"]``.
 TEMPORAL_VARIANTS: dict[str, int] = {**{name: 0 for name in
                                         TEMPORAL_GEOMETRIES}, "general": 0}
+#: The same for K2 (sum ``LAUNCHES["rowchunk"]``) and K3 (``"dbuf"``).
+ROWCHUNK_VARIANTS: dict[str, int] = dict(TEMPORAL_VARIANTS)
+DBUF_VARIANTS: dict[str, int] = dict(TEMPORAL_VARIANTS)
+_VARIANTS = {"temporal": TEMPORAL_VARIANTS, "rowchunk": ROWCHUNK_VARIANTS,
+             "dbuf": DBUF_VARIANTS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: The launcher's geometry code: its place in TEMPORAL_GEOMETRIES.
@@ -57,7 +63,7 @@ _GEOMETRY_CODE = {name: i for i, name in enumerate(TEMPORAL_GEOMETRIES)}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, TEMPORAL_VARIANTS):
+    for counts in (LAUNCHES, *_VARIANTS.values()):
         for k in counts:
             counts[k] = 0
 
@@ -186,10 +192,12 @@ def _batch_hw(u: torch.Tensor) -> tuple[int, int, int]:
     return math.prod(u.shape[:-2]), u.shape[-2], u.shape[-1]
 
 
-def _checked(name: str, err: int) -> None:
+def _checked(name: str, err: int, variant: str | None = None) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1
+    if variant is not None:
+        _VARIANTS[name][variant] += 1
 
 
 def _stream(u: torch.Tensor) -> int:
@@ -252,31 +260,34 @@ def _launch_shifted(plan: ExecutionPlan, u, out, mask) -> None:
     launch_shifted_views(plan, shifted_views(u, plan.spec), out)
 
 
+def _sweep_args(plan: ExecutionPlan) -> tuple[str, int, int]:
+    """K2's and K3's kernel: its variant, the launcher's geometry code (-1
+    for the general kernel) and the window's row pitch in bytes."""
+    variant = temporal_variant(plan.spec)
+    return (variant, _GEOMETRY_CODE.get(variant, -1),
+            window_pitch(plan.bn, plan.radius, plan.dtype_bytes))
+
+
 def _launch_rowchunk(plan: ExecutionPlan, u, out, mask) -> None:
     b, h, w = _batch_hw(u)
     n, dy, dx, wts = _tap_args(plan.spec)
+    variant, geometry, pitch = _sweep_args(plan)
     _checked("rowchunk", _lib().repro_rowchunk(
-        u.data_ptr(), out.data_ptr(), _DTYPE_CODE[u.dtype], b, h, w,
-        plan.radius, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles, n, dy,
-        dx, wts, plan.vmem_bytes, _stream(u)))
-
-
-def dbuf_tiles_per_block(plan: ExecutionPlan, batch: int, sms: int) -> int:
-    """Row tiles each dbuf block walks: as many as keeps >= 2 blocks/SM."""
-    strips = plan.col_tiles * batch
-    runs = min(plan.row_tiles, max(1, -(-2 * sms // strips)))
-    return -(-plan.row_tiles // runs)
+        u.data_ptr(), out.data_ptr(), geometry, _DTYPE_CODE[u.dtype], b, h,
+        w, plan.radius, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles,
+        pitch, n, dy, dx, wts, plan.vmem_bytes, _stream(u)), variant)
 
 
 def _launch_dbuf(plan: ExecutionPlan, u, out, mask) -> None:
     b, h, w = _batch_hw(u)
     n, dy, dx, wts = _tap_args(plan.spec)
+    variant, geometry, pitch = _sweep_args(plan)
+    # Tiles a block walks: 0 lets the launcher fill the card's resident
+    # blocks (it knows the kernel's occupancy).
     _checked("dbuf", _lib().repro_dbuf(
-        u.data_ptr(), out.data_ptr(), _DTYPE_CODE[u.dtype], b, h, w,
-        plan.radius, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles,
-        dbuf_tiles_per_block(plan, b, _sm_count(u.device)),
-        dbuf_pitch_words(plan.bn, plan.radius, plan.dtype_bytes), n, dy, dx,
-        wts, plan.vmem_bytes, _stream(u)))
+        u.data_ptr(), out.data_ptr(), geometry, _DTYPE_CODE[u.dtype], b, h,
+        w, plan.radius, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles, 0,
+        pitch, n, dy, dx, wts, plan.vmem_bytes, _stream(u)), variant)
 
 
 def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
@@ -299,8 +310,7 @@ def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
             _DTYPE_CODE[u.dtype], b, h, w, plan.radius, plan.t, plan.bm,
             plan.bn, plan.row_tiles, plan.col_tiles, n, wts,
             plan.vmem_bytes, _stream(u))
-    _checked("temporal", err)
-    TEMPORAL_VARIANTS[variant] += 1
+    _checked("temporal", err, variant)
 
 
 _LAUNCHERS = {"shifted": _launch_shifted, "rowchunk": _launch_rowchunk,

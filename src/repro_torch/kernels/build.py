@@ -110,10 +110,8 @@ F32 = ctypes.c_float
 #: argtypes of each launcher (pointers and the stream as c_void_p).
 SIGNATURES = {
     "stencil": {
-        "repro_rowchunk": [P, P, I, I, I, I, I, I, I, I, I, I, IP, IP, F, I,
-                           P],
-        "repro_dbuf": [P, P, I, I, I, I, I, I, I, I, I, I, I, I, IP, IP, F,
-                       I, P],
+        "repro_rowchunk": [P, P, *[I] * 12, IP, IP, F, I, P],
+        "repro_dbuf": [P, P, *[I] * 13, IP, IP, F, I, P],
         "repro_temporal": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, IP, IP,
                            F, I, P],
         "repro_temporal_geo": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,

@@ -6,8 +6,8 @@ Needs a CUDA card and nvcc; skipped without them. Run on the card with::
 
 Every kernel computes the plain version's f32 operations in the same
 order, so each comparison is bit for bit. Shapes are small but cover the
-ragged right and bottom tiles, a radius-2 spec, a bf16 grid of odd width
-(the dbuf kernel's unaligned load path), a batch and a pin mask.
+ragged right and bottom tiles, a radius-2 spec, bf16 grids of every row
+alignment, views at an offset, a batch and a pin mask.
 """
 import pytest
 import torch
@@ -192,6 +192,200 @@ def test_bad_inputs_raise(cuda):
         TE.stencil_rowchunk(u, spec)
     with pytest.raises(TE.PlanError, match="2-D tile plan"):
         TE.stencil_rowchunk(u.contiguous(), spec, device="cpu_ref")
+
+
+# --------------------- K2 rowchunk and K3 dbuf windows ---------------------
+
+def _spec_of(n, r, seed):
+    """n taps at distinct offsets within radius r (the radius reached),
+    weights from a seed: specs at the general kernels' tap bounds."""
+    g = torch.Generator().manual_seed(seed)
+    ring = [(dy, dx) for dy in range(-r, r + 1) for dx in range(-r, r + 1)]
+    order = torch.randperm(len(ring), generator=g).tolist()
+    offs = [(-r, 0)] + [ring[i] for i in order if ring[i] != (-r, 0)]
+    w = (torch.rand(n, generator=g) - 0.3).tolist()
+    return TS.StencilSpec(tuple(offs[:n]), tuple(w))
+
+
+J5 = SPECS["jacobi5"]
+SWEEP_SPECS = {**SPECS,  # the compiled geometries, then the general kernel
+               "jacobi5_reversed": TS.StencilSpec(J5.offsets[::-1],
+                                                  (0.1, 0.2, 0.3, 0.4)),
+               "taps8": _spec_of(8, 1, 11), "taps16": _spec_of(16, 2, 12),
+               "taps32": _spec_of(32, 3, 13)}
+# bf16 rows of every residue mod 16 bytes (W = 128 .. 135), the paper's
+# width, and grids smaller than one tile.
+SWEEP_SHAPES = [(37, w) for w in range(128, 136)] + [(13, 9218), (9, 11),
+                                                      (20, 40)]
+
+
+def _sweep_counts(policy):
+    return TE.LAUNCHES[policy], dict(getattr(TE,
+                                             f"{policy.upper()}_VARIANTS"))
+
+
+def _assert_one_sweep(policy, before, variant):
+    launches, variants = _sweep_counts(policy)
+    assert launches == before[0] + 1
+    assert {k: variants[k] - before[1][k] for k in variants} == {
+        k: int(k == variant) for k in variants}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SWEEP_SHAPES)
+@pytest.mark.parametrize("spec_name", list(SWEEP_SPECS))
+@pytest.mark.parametrize("policy", ["rowchunk", "dbuf"])
+def test_sweep_kernels_equal_plain_bitwise(cuda, policy, spec_name, shape,
+                                           dtype):
+    """K2 and K3 at their default tiles on each compiled geometry and the
+    general kernel, at every row alignment, bit for bit."""
+    spec = SWEEP_SPECS[spec_name]
+    u = _grid(shape, dtype, cuda, seed=14)
+    variant = spec_name if spec_name in SPECS else "general"
+    before = _sweep_counts(policy)
+    got = getattr(TE, f"stencil_{policy}")(u, spec)
+    torch.cuda.synchronize()
+    _assert_one_sweep(policy, before, variant)
+    assert torch.equal(got, getattr(TE, f"stencil_{policy}_plain")(u, spec))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("tile", [(1, 1), (3, 8), (7, 61), (5, 300)])
+@pytest.mark.parametrize("spec_name", ["jacobi5", "radius2", "taps16"])
+@pytest.mark.parametrize("policy", ["rowchunk", "dbuf"])
+def test_sweep_kernels_at_other_tiles_bitwise(cuda, policy, spec_name, tile,
+                                              dtype):
+    """Ragged tiles, tiles narrower than a chunk, and K3 runs of many
+    tiles through its ring, on an odd width and a batch of 3."""
+    spec = SWEEP_SPECS[spec_name]
+    u = _grid((61, 261), dtype, cuda, seed=15, batch=3)
+    plan = TE.plan_for(u.shape[-2:], dtype, spec, policy, bm=tile[0],
+                       bn=tile[1], device="gpu_sm90")
+    before = _sweep_counts(policy)
+    got = TE.policies.launch(plan, u)
+    torch.cuda.synchronize()
+    _assert_one_sweep(policy, before,
+                      spec_name if spec_name in SPECS else "general")
+    assert torch.equal(got, getattr(TE, f"stencil_{policy}_plain")(u, spec))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec_name", ["jacobi5", "laplace9", "radius2",
+                                       "taps8"])
+@pytest.mark.parametrize("policy", ["rowchunk", "dbuf"])
+def test_sweep_kernels_take_a_batch_bitwise(cuda, policy, spec_name, dtype):
+    spec = SWEEP_SPECS[spec_name]
+    u = _grid((133, 259), dtype, cuda, seed=16, batch=3)
+    got = getattr(TE, f"stencil_{policy}")(u, spec)
+    want = getattr(TE, f"stencil_{policy}_plain")(u, spec)
+    assert torch.equal(got, want)
+    for i in range(3):
+        assert torch.equal(got[i], getattr(TE, f"stencil_{policy}")(u[i],
+                                                                    spec))
+
+
+@pytest.mark.parametrize("offset", [1, 3, 5, 7])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec_name", ["jacobi5", "radius2", "taps8"])
+@pytest.mark.parametrize("policy", ["rowchunk", "dbuf"])
+def test_sweep_kernels_on_views_at_an_offset(cuda, policy, spec_name, dtype,
+                                             offset):
+    """Input and output as contiguous views `offset` elements into their
+    storage (2 bytes apart in bf16 at offset 1), the output's ring filled
+    with a value the kernel must leave alone: only the interior changes,
+    bit for bit the plain version's."""
+    spec = SWEEP_SPECS[spec_name]
+    r = spec.radius
+    h, w = 45, 133
+    src = _grid((h * w + 2 * offset,), dtype, cuda, seed=17)
+    u = src[offset:offset + h * w].view(h, w)
+    dst = torch.full((h * w + offset,), -3.0, dtype=dtype, device=cuda)
+    out = dst[offset:].view(h, w)
+    assert u.is_contiguous() and u.storage_offset() == offset
+    got = getattr(TE, f"stencil_{policy}")(u, spec, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    want = getattr(TE, f"stencil_{policy}_plain")(u, spec)
+    assert torch.equal(out[r:-r, r:-r], want[r:-r, r:-r])
+    ring = torch.ones((h, w), dtype=torch.bool, device=cuda)
+    ring[r:-r, r:-r] = False
+    assert bool((out[ring] == -3.0).all()) and bool((dst[:offset] == -3.0
+                                                     ).all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("per", [0, 1, 2, 5, 1000])
+def test_dbuf_runs_of_any_length_bitwise(cuda, per, dtype):
+    """K3's blocks walk `per` tiles through the ring (0: as many as fill
+    the card), down a strip of ragged tiles, bit for bit."""
+    from repro_torch.engine import policies as P
+    spec = SWEEP_SPECS["laplace9"]
+    u = _grid((203, 1101), dtype, cuda, seed=18, batch=2)
+    out = torch.empty_like(u)
+    P.copy_ring(u, out, 1)
+    plan = TE.plan_for(u.shape[-2:], dtype, spec, "dbuf", bm=6, bn=250,
+                       device="gpu_sm90")
+    n, dy, dx, w = P._tap_args(spec)
+    err = P._lib().repro_dbuf(
+        u.data_ptr(), out.data_ptr(), 1, P._DTYPE_CODE[dtype], 2, 203, 1101,
+        1, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles, per,
+        TE.plan.window_pitch(plan.bn, 1, dtype.itemsize), n, dy, dx, w,
+        plan.vmem_bytes, P._stream(u))
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(out, TE.stencil_dbuf_plain(u, spec))
+
+
+@pytest.mark.parametrize("policy", ["rowchunk", "dbuf"])
+def test_sweep_launchers_refuse_what_they_do_not_take(cuda, policy):
+    """The wrappers refuse other dtypes, strided grids and a row-block
+    plan; the C launchers refuse a geometry whose offsets are not the
+    spec's, an unknown geometry, too many taps, and a pitch or shared
+    memory short of the window's."""
+    import ctypes
+    spec = TS.jacobi_2d_5pt()
+    fn = getattr(TE, f"stencil_{policy}")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fn(_grid((20, 40), torch.float64, cuda), spec)
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(_grid((20, 40), torch.float32, cuda).t(), spec)
+    with pytest.raises(TE.PlanError, match="2-D tile plan"):
+        fn(_grid((20, 40), torch.float32, cuda), spec, device="cpu_ref")
+    from repro_torch.engine import policies as P
+    u = _grid((20, 40), torch.float32, cuda)
+    out = u.clone()
+    plan = TE.plan_for(u.shape, u.dtype, spec, policy, device="gpu_sm90")
+    n, dy, dx, w = P._tap_args(spec)
+    pitch = TE.plan.window_pitch(plan.bn, 1, 4)
+    lib = P._lib()
+    stream = P._stream(u)
+
+    def call(geometry=0, taps=n, pitch=pitch, smem=plan.vmem_bytes):
+        head = [u.data_ptr(), out.data_ptr(), geometry, 0, 1, 20, 40, 1,
+                plan.bm, plan.bn, plan.row_tiles, plan.col_tiles]
+        if policy == "dbuf":
+            head.append(1)
+        return getattr(lib, f"repro_{policy}")(*head, pitch, taps, dy, dx,
+                                                w, smem, stream)
+    assert call() == 0 and call(geometry=-1) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, P.stencil_rowchunk_plain(u, spec))
+    assert call(geometry=1) != 0   # laplace9's kernel for jacobi5's taps
+    assert call(geometry=3) != 0
+    many = (ctypes.c_int * 33)()
+    assert getattr(lib, f"repro_{policy}")(
+        *[u.data_ptr(), out.data_ptr(), -1, 0, 1, 20, 40, 1, plan.bm,
+          plan.bn, plan.row_tiles, plan.col_tiles]
+        + ([1] if policy == "dbuf" else []),
+        pitch, 33, many, many, (ctypes.c_float * 33)(), plan.vmem_bytes,
+        stream) != 0
+    assert call(pitch=pitch - 16) != 0 and call(pitch=pitch + 8) != 0
+    assert call(smem=plan.vmem_bytes - 16) != 0
+    if policy == "dbuf":  # a negative run length
+        head = [u.data_ptr(), out.data_ptr(), 0, 0, 1, 20, 40, 1, plan.bm,
+                plan.bn, plan.row_tiles, plan.col_tiles, -1]
+        assert lib.repro_dbuf(*head, pitch, n, dy, dx, w, plan.vmem_bytes,
+                              stream) != 0
 
 
 # ------------------------- K8 flash attention -------------------------

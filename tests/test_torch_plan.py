@@ -137,7 +137,11 @@ def test_gpu_2d_plan_fits_paper_grid(policy, t, jd, td):
     plan = TP.plan_for((1026, 9218), td, ts, policy, t=t, device="gpu_sm90")
     assert plan.tiled_2d
     assert plan.vmem_bytes <= TD.get_device("gpu_sm90").fast_memory_bytes
-    assert (plan.bm, plan.bn) == TP.GPU_TILES[policy]
+    bm, bn = TP.GPU_TILES[policy]
+    if policy != "temporal":  # K2's and K3's width leaves four blocks an SM
+        bn = TP.sweep_bn(policy, td.itemsize, ts, bm, bn,
+                         TD.get_device("gpu_sm90"))
+    assert (plan.bm, plan.bn) == (bm, bn)
     assert plan.t == (t or 1)
     assert plan.halo == (8 if policy == "temporal" else 1)
     assert plan.window_rows == plan.bm + 2 * plan.halo
@@ -185,11 +189,94 @@ def test_gpu_2d_plan_edges_and_limits():
 
 
 def test_dbuf_pitch_covers_the_word_shift():
-    # f32: one element a word, no shift; bf16: two, up to one element of
-    # shift on the left, rounded up to whole words.
-    assert TP.dbuf_pitch_words(128, 1, 4) == 130
-    assert TP.dbuf_pitch_words(128, 1, 2) == 66
-    assert TP.dbuf_pitch_words(127, 2, 2) == 66
+    """A K2/K3 window row holds the 16-byte chunks that cover its bn + 2r
+    cells wherever the first cell falls in its chunk (any element offset
+    of a row that is no multiple of 16 bytes), between its slack."""
+    assert TP.window_pitch(504, 1, 2) == 16 + 65 * 16 + 32
+    assert TP.window_pitch(504, 1, 4) == 16 + 128 * 16 + 32
+    assert TP.window_pitch(128, 1, 4) == 16 + 34 * 16 + 32
+    assert TP.window_pitch(127, 2, 2) == 16 + 18 * 16 + 32
+    for bn in (1, 7, 8, 127, 128, 504, 1016):
+        for r in (1, 2, 3):
+            for esz in (2, 4):
+                pitch = TP.window_pitch(bn, r, esz)
+                data = pitch - TP.WINDOW_LEAD - TP.WINDOW_TAIL
+                assert pitch % 16 == 0 and data % 16 == 0
+                span = (bn + 2 * r) * esz
+                for shift in range(0, 16, esz):
+                    assert -(-(shift + span) // 16) * 16 <= data
+
+
+def test_window_constants_match_the_compiled_source():
+    """The window slack, K3's ring and its mbarrier bytes are the ones
+    stencil.cu compiles, and its pitch rule is plan.window_pitch."""
+    import pathlib
+    import re
+    src = (pathlib.Path(TP.__file__).parents[1] / "csrc"
+           / "stencil.cu").read_text()
+    defined = {name: int(v) for name, v in re.findall(
+        r"#define (WIN_LEAD|WIN_TAIL|DBUF_STAGES|DBUF_BARS) (\d+)", src)}
+    assert defined == {"WIN_LEAD": TP.WINDOW_LEAD,
+                       "WIN_TAIL": TP.WINDOW_TAIL,
+                       "DBUF_STAGES": TP.DBUF_STAGES,
+                       "DBUF_BARS": TP.DBUF_BARS}
+    assert ("return WIN_LEAD + (span + 16 - esz + 15) / 16 * 16 + WIN_TAIL;"
+            in src)
+    # K3's mbarriers: a full and an empty one a stage, 8 bytes each.
+    assert 2 * TP.DBUF_STAGES * 8 <= TP.DBUF_BARS and TP.DBUF_BARS % 16 == 0
+    # The sweep launchers' geometry codes follow TEMPORAL_GEOMETRIES.
+    launcher = src[src.index("dispatch_sweep(int dtype"):]
+    for code, struct in enumerate(("Jacobi5", "Laplace9", "Radius2")):
+        assert f"case {code}: return geo(Type<{struct}>{{}});" in launcher
+
+
+@pytest.mark.parametrize("td", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec_name", list(SPECS))
+@pytest.mark.parametrize("policy,bm,bn", [
+    ("rowchunk", None, None), ("dbuf", None, None), ("rowchunk", 16, 1016),
+    ("dbuf", 8, 1016), ("rowchunk", 64, 248), ("dbuf", 32, 120)])
+def test_smem_2d_sweep_is_the_window_layout(policy, bm, bn, spec_name, td):
+    """K2 allocates one window of bm + 2r rows of window_pitch bytes; K3
+    DBUF_STAGES of them behind DBUF_BARS bytes of mbarriers."""
+    spec = SPECS[spec_name][1]
+    r = spec.radius
+    plan = TP.plan_for((1024 + 2 * r, 9216 + 2 * r), td, spec, policy,
+                       bm=bm, bn=bn, device="gpu_sm90")
+    want_bm, want_bn = (bm, bn) if bm else TP.GPU_TILES[policy]
+    if not bm:  # the default width, halved where r = 2 needs it
+        want_bn = TP.sweep_bn(policy, td.itemsize, spec, want_bm, want_bn,
+                              TD.get_device("gpu_sm90"))
+    assert (plan.bm, plan.bn, plan.halo) == (want_bm, want_bn, r)
+    window = (want_bm + 2 * r) * TP.window_pitch(want_bn, r, td.itemsize)
+    want = window if policy == "rowchunk" else (
+        TP.DBUF_BARS + TP.DBUF_STAGES * window)
+    assert plan.vmem_bytes == want
+    assert TP.smem_2d(policy, td.itemsize, spec, want_bm, want_bn, 1) == (
+        r, want)
+    assert plan.vmem_bytes <= TD.get_device("gpu_sm90").fast_memory_bytes
+
+
+@pytest.mark.parametrize("td", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("policy,bm,bn_bf16,bn_f32", [
+    ("rowchunk", None, 1016, 1016), ("dbuf", None, 504, 252),
+    ("rowchunk", 64, 254, 127), ("dbuf", 64, 126, 63),
+    ("dbuf", 32, 252, 126)])
+def test_sweep_default_width_leaves_four_blocks_an_sm(policy, bm, bn_bf16,
+                                                      bn_f32, td):
+    """K2's and K3's default tiles fit four blocks an SM as they are (K3's
+    in f32 at half width); a taller requested bm halves the default width
+    until they do again; a requested bn is kept."""
+    ts = TS.jacobi_2d_5pt()
+    budget = TD.get_device("gpu_sm90").fast_memory_bytes // 4
+    plan = TP.plan_for((1026, 9218), td, ts, policy, bm=bm,
+                       device="gpu_sm90")
+    assert plan.bn == (bn_bf16 if td == torch.bfloat16 else bn_f32)
+    assert plan.vmem_bytes <= budget
+    assert TP.smem_2d(policy, td.itemsize, ts, plan.bm, 2 * plan.bn,
+                      1)[1] > budget or plan.bn == TP.GPU_TILES[policy][1]
+    asked = TP.plan_for((1026, 9218), td, ts, policy, bm=bm, bn=100,
+                        device="gpu_sm90")
+    assert asked.bn == 100
 
 
 def test_plan_cache_hits_and_counters():

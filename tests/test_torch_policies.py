@@ -194,3 +194,58 @@ def test_shifted_views_are_the_plain_shifted_interiors(spec_name, dtype):
     plain = TE.stencil_shifted_plain(tu, ts)
     assert torch.equal(acc.to(tu.dtype), plain[..., r:h - r, r:w - r])
 
+
+
+class _StubLib:
+    """Stands in for the built stencil library: records each launcher's
+    arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launcher(*args):
+            self.calls.append((name, args))
+            return 0
+        return launcher
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec_name,variant,geometry", [
+    ("jacobi5", "jacobi5", 0), ("laplace9", "laplace9", 1),
+    ("radius2", "radius2", 2), ("advection2d", "general", -1)])
+@pytest.mark.parametrize("policy", ["rowchunk", "dbuf"])
+def test_sweep_launch_arguments(monkeypatch, policy, spec_name, variant,
+                                geometry, dtype):
+    """K2's and K3's launchers get the spec's geometry code (-1: the
+    general kernel), the window pitch and the plan's shared memory, in
+    the order and number of their ctypes signatures; each launch counts
+    once in LAUNCHES and once under its variant."""
+    from repro_torch.engine import policies as P
+    from repro_torch.engine.plan import window_pitch
+    from repro_torch.kernels.build import SIGNATURES
+    lib = _StubLib()
+    monkeypatch.setattr(P, "_lib", lambda: lib)
+    monkeypatch.setattr(P, "_stream", lambda u: 7)
+    ts = SPECS[spec_name][1]
+    r = ts.radius
+    u = torch.zeros((3, 1024 + 2 * r, 9216 + 2 * r), dtype=dtype)
+    plan = TE.plan_for(u.shape[-2:], dtype, ts, policy, device="gpu_sm90")
+    TE.reset_launch_counts()
+    P._LAUNCHERS[policy](plan, u, u, None)
+    (name, args), = lib.calls
+    assert name == f"repro_{policy}"
+    assert len(args) == len(SIGNATURES["stencil"][name])
+    pitch = window_pitch(plan.bn, r, dtype.itemsize)
+    head = [geometry, 0 if dtype == torch.float32 else 1, 3, *u.shape[-2:],
+            r, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles]
+    if policy == "dbuf":
+        head.append(0)  # tiles a block: the launcher fills the card
+    assert list(args[2:2 + len(head)]) == head
+    assert args[2 + len(head)] == pitch and args[3 + len(head)] == ts.taps
+    assert args[-2:] == (plan.vmem_bytes, 7)
+    counts = getattr(TE, f"{policy.upper()}_VARIANTS")
+    assert TE.LAUNCHES[policy] == 1
+    assert counts == {k: int(k == variant) for k in counts}
+    TE.reset_launch_counts()
+    assert set(counts.values()) == {0}
