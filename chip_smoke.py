@@ -96,7 +96,13 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     its bound and, for the copies, ``Tensor.copy_`` (a yardstick only);
     K5a's split of a tile over blocks at bn 4096, and K5b's plan, its
     time against ``copy_`` and the ratio of ``sync=True`` to
-    ``sync=False``, are printed.
+    ``sync=False``, are printed. An L2 probe (K5c's volatile loads, each
+    block re-reading its tile of a 12–25 MiB buffer 64 or 128 times, in
+    ten layouts, each sum checked) and K5c's own (factor + 1) bytes over
+    its time give the rate K5c's bound is priced at, the highest of them:
+    HBM serves the first read and the write, the L2 every access; K5c's
+    share of that bound is printed at each factor of Table V, and none
+    may exceed 1.
     Then ``launch.access`` runs Tables II–VI on the card at the paper's
     sizes with the launch counters zeroed just before: every measured row
     must read ``us_per_call > 0`` and all five kernels must have launched;
@@ -125,7 +131,27 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     stream to O(1) at the logits, so two right routes fail that bound
     (the JAX package's own hybrid fails it between its routes at smoke
     size);
-12. one JSON line listing the kernels, then the card's name and power
+12. stencil solves as a service at the paper's grid: ``SolveServer``
+    (max_slots 4, superblock 4, temporal, t 8) serves two f32 buckets
+    (1024 x 9216 and 2048 x 4608 interiors, six requests each: five
+    tolerances taken from each bucket's own solo residual curve, spread
+    over an order of magnitude, and one fixed at 1000 sweeps) and a bf16
+    bucket of two, then one lone f32 request through ``run_converged``.
+    Every result must equal its solo ``engine.run`` at its realized count
+    bit for bit, on a multiple of t, converged within its tol; the
+    realized blocks must equal the solo curves'; superblock 1 must serve
+    what superblock 4 serves; the served K1 launches (counters zeroed
+    just before) must all be the jacobi5 kernel and number the trace's
+    blocks (each superblock's block count plus each ``run_converged``'s),
+    and the served K2 launches (a superblock's residuals, one a block)
+    must all be the jacobi5 kernel and number the superblocks' blocks;
+    ``SolveServer.warm`` must measure each tune cell once in f32 and bf16
+    and not again, and ``policy="tuned"`` requests must equal their solo
+    runs under the winner. Served wall time and GPt/s against one request
+    at a time, sweeps saved, host waits a request, the device's busy
+    share and its kernels are printed, and bench_serve's t=64 is put to
+    admission;
+13. one JSON line listing the kernels, then the card's name and power
     limit, then the result line.
 
 It imports nothing of JAX and nothing of the ``repro`` package, and exits
@@ -136,6 +162,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -165,6 +192,7 @@ from repro_torch.layers import basic  # noqa: E402
 from repro_torch.launch import access  # noqa: E402
 from repro_torch.launch.sweep_ab import cold_ms, cold_pairs  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.obs import trace as obs_trace  # noqa: E402
 from repro_torch.serve.engine import Request, ServeEngine  # noqa: E402
 from repro_torch.obs.timing import (device_ms, kernel_ms,  # noqa: E402
                                     top_kernels)
@@ -1160,7 +1188,50 @@ def stream_fn(name: str):
     return getattr(mod, name), getattr(mod, f"{name}_plain")
 
 
-def phase_stream(peaks, stats) -> None:
+# The L2 probe's layouts, (loads in flight a thread, tiles an SM, passes):
+# each buffer at most half the L2, its rate read with the sum checked.
+PROBE_LAYOUTS = [(u, tiles, p) for u, tiles in ((8, 3), (8, 6), (4, 6),
+                                                (4, 8), (4, 12))
+                 for p in (64, 128)]
+
+
+def l2_probe_rates(smi: str) -> dict[str, float]:
+    """Bytes/s at which the L2 serves K5c's volatile 16-byte loads, for
+    each of the probe's layouts: a buffer of whole tiles an SM re-read
+    ``passes`` times a launch, its sum checked against the plain
+    version. Returns ``{layout: rate}``."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(12)
+    rates = {}
+    for unroll, tiles, passes in PROBE_LAYOUTS:
+        x = torch.randint(-2**31, 2**31 - 1,
+                          (tiles * sms * stream.probe_tile(unroll) // 4,),
+                          generator=g, dtype=torch.int32, device="cuda")
+        got = stream.l2_read_probe(x, passes=passes, unroll=unroll)
+        torch.cuda.synchronize()
+        check(torch.equal(got.cpu(),
+                          stream.l2_read_probe_plain(x, passes=passes)),
+              f"the L2 probe's sum != its plain version ({unroll}, {tiles}, "
+              f"{passes})")
+        ms = device_ms(lambda: stream.l2_read_probe(x, passes=passes,
+                                                    unroll=unroll))
+        label = (f"unroll {unroll}, {tiles} tiles an SM "
+                 f"({x.numel() * 4 / 2**20:.3f} MiB), {passes} passes")
+        rates[label] = passes * x.numel() * 4 / ms * 1e3
+        print(f"L2 probe, {label}: {rates[label] / 1e12:.4f} TB/s "
+              f"({ms:.6f} ms, sum checked) on {smi}")
+    return rates
+
+
+def replicated_bound_ms(x: torch.Tensor, factor: int, bw: float,
+                        l2: float) -> float:
+    """K5c's least time: HBM serves the first read and the write, the L2
+    each of the factor reads and the write, at ``l2`` bytes/s."""
+    nbytes = x.numel() * x.element_size()
+    return max(2 * nbytes / bw, (factor + 1) * nbytes / l2) * 1e3
+
+
+def phase_stream(peaks, stats, smi: str) -> None:
     print("== phase 10: the memory-access study, K5a-c and K6a-b vs their "
           "plain versions, bit for bit, then launch.access on Tables II-VI "
           "==")
@@ -1191,6 +1262,24 @@ def phase_stream(peaks, stats) -> None:
              "stream_replicated": (ramp.float(), {"bm": 128, "factor": 32}),
              "dma_only": (grid, {"bm": 64}),
              "compute_only": (grid, {"bm": 64})}
+    # K5c at each factor of Table V, then the L2's rate: the highest read
+    # rate seen in this run, the probe's best layout or K5c's own (each of
+    # its reads and its write go through the L2, so no L2 is slower than
+    # (factor + 1) bytes over its time); every share is then at most 1.
+    rep = mains["stream_replicated"][0]
+    k5c_ms = {f: device_ms(lambda: stream.stream_replicated(rep, bm=128,
+                                                            factor=f))
+              for f in access.FACTORS}
+    probes = l2_probe_rates(smi)
+    best = max(probes, key=probes.get)
+    own = {f: (f + 1) * rep.numel() * rep.element_size() / ms * 1e3
+           for f, ms in k5c_ms.items()}
+    fown = max(own, key=own.get)
+    l2 = max(probes[best], own[fown])
+    print(f"L2 read rate: {l2 / 1e12:.4f} TB/s, the higher of the probe's "
+          f"best ({best}: {probes[best] / 1e12:.4f} TB/s) and K5c's own "
+          f"(factor + 1) bytes / time (x{fown}: {own[fown] / 1e12:.4f} "
+          f"TB/s) on {smi}")
     for name, (x, kw) in mains.items():
         fn, plain = stream_fn(name)
         out = fn(x, **kw)
@@ -1201,7 +1290,12 @@ def phase_stream(peaks, stats) -> None:
         ops = {"stream_replicated": kw.get("factor", 0) * x.numel(),
                "compute_only": 4 * x.numel()}.get(name, 0)
         b_ms, o_ms = nbytes / bw * 1e3, ops / flops * 1e3
-        k_ms = device_ms(lambda: fn(x, **kw))
+        if name == "stream_replicated":
+            # K5c's function is `factor` fetches of every block: HBM serves
+            # the first read and the write, the L2 every access
+            b_ms = replicated_bound_ms(x, kw["factor"], bw, l2)
+        k_ms = (k5c_ms[kw["factor"]] if name == "stream_replicated"
+                else device_ms(lambda: fn(x, **kw)))
         p_ms = device_ms(lambda: plain(x, **kw), reps=5, inner=3)
         src = x[1:-1, 1:-1] if name == "dma_only" else x
         lib_ms = (None if name in ("stream_replicated", "compute_only")
@@ -1212,14 +1306,35 @@ def phase_stream(peaks, stats) -> None:
                  library_ms=lib_ms)
         extra = ""
         if name == "stream_replicated":
-            # what the factor reads and the one write move, as the TPU does
+            # the old bound (bytes once at HBM's rate), and what the factor
+            # reads and the write would take from HBM, as the TPU moves them
+            s["bytes_once_ms"] = nbytes / bw * 1e3
             s["traffic_ms"] = ((kw["factor"] + 1) * x.numel()
                                * x.element_size() / bw * 1e3)
-            extra = f" factor_traffic_ms={s['traffic_ms']:.6f}"
+            s["l2_tbs"] = l2 / 1e12
+            s["l2_probe_tbs"] = probes[best] / 1e12
+            s["k5c_l2_tbs"] = own[fown] / 1e12
+            extra = (f" (L2-priced: max(2 bytes / HBM, (factor + 1) bytes / "
+                     f"L2 at {l2 / 1e12:.4f} TB/s)) bytes_once_ms="
+                     f"{s['bytes_once_ms']:.6f} hbm_traffic_ms="
+                     f"{s['traffic_ms']:.6f}")
         print(f"{STREAM[name][0]} {name:18s} {STREAM[name][2]}: "
               f"kernel_ms={k_ms:.6f} plain_ms={p_ms:.6f} "
               f"bound_ms={s['bound_ms']:.6f} ({s['bound_by']}){extra} "
               f"copy_ms={'null' if lib_ms is None else f'{lib_ms:.6f}'}")
+    shares = {}
+    for factor, ms in k5c_ms.items():
+        shares[factor] = {"ms": ms, "bound_ms": replicated_bound_ms(
+            rep, factor, bw, l2)}
+        print(f"K5c x{factor}: kernel_ms={ms:.6f} bound_ms="
+              f"{shares[factor]['bound_ms']:.6f} share "
+              f"{shares[factor]['bound_ms'] / ms:.1%} (L2 {l2 / 1e12:.4f} "
+              f"TB/s, HBM {bw / 1e12:.2f} TB/s) on {smi}")
+        # (at the factor that sets the L2's rate the two are equal but
+        # for the last bit of the division and product)
+        check(shares[factor]["bound_ms"] <= ms * (1 + 1e-12),
+              f"K5c x{factor} ran under its bound: the bound is wrong")
+    stats["stream_replicated"]["factors"] = shares
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     split = stream.copy_split(side, side, 256, side, sms)
     stats["stream_copy"]["split"] = split
@@ -1258,6 +1373,282 @@ def phase_stream(peaks, stats) -> None:
         stats[name].update(launches=n, path="launch.access tables II-VI")
 
 
+# (name, interior rows, interior cols, dtype, requests): phase 12's
+# buckets, modelled on benchmarks/bench_serve.py's mix at the paper's size.
+SERVE_BUCKETS = [("f32 1024x9216", 1024, 9216, torch.float32, 6),
+                 ("f32 2048x4608", 2048, 4608, torch.float32, 6),
+                 ("bf16 1024x9216", 1024, 9216, torch.bfloat16, 2)]
+SERVE_ITERS, SERVE_SLOTS, SERVE_SUPERBLOCK = 1000, 4, 4
+
+
+def residual_curve(u0: torch.Tensor, blocks: int) -> list[float]:
+    """The residual after each block of T sweeps of one solo solve."""
+    u, curve = u0, []
+    for _ in range(blocks):
+        u = engine.run(u, policy="temporal", iters=T, t=T)
+        curve.append(float(engine.residual_for()(u)))
+    return curve
+
+
+def spread_tols(curve: list[float], n: int) -> list[tuple[int, float]]:
+    """``n`` (blocks, tol) pairs: blocks spread from the 12th (or the first
+    low of a curve that stops falling before it) to the first whose
+    residual is a tenth of its, each a new low of the curve,
+    and each tol halfway between that low and the lowest residual before
+    it, so a request with it converges at exactly that many blocks."""
+    lows = [b for b in range(1, len(curve))
+            if curve[b] < min(curve[:b])]
+    check(bool(lows), "the residual curve never falls")
+    b0 = min((b for b in lows if b >= 11), default=lows[0])
+    end = next((b for b in lows if curve[b] <= curve[b0] / 10), lows[-1])
+    picks = sorted({min(lows, key=lambda b: abs(
+        b - b0 * (end / b0) ** (i / max(n - 1, 1)))) for i in range(n)})
+    check(len(picks) == n, f"no {n} distinct eviction blocks: {picks}")
+    return [(b + 1, (min(curve[:b]) + curve[b]) / 2) for b in picks]
+
+
+def serve_mix(smi: str):
+    """Phase 12's requests: per bucket, tols from its own solo residual
+    curve (spread over an order of magnitude) plus one fixed-iteration
+    request. Returns (make, expected blocks per request)."""
+    from repro_torch.serve import SolveRequest
+    plan, expect = [], []
+    for name, ny, nx, dtype, n in SERVE_BUCKETS:
+        u0 = make_laplace_problem(ny, nx, dtype=dtype, left=1.0)
+        curve = residual_curve(u0, SERVE_ITERS // T)
+        tols = spread_tols(curve, n - 1)
+        print(f"[{name}] residual after blocks 1, 12, {len(curve)} of t={T}: "
+              f"{curve[0]:.6e}, {curve[11]:.6e}, {curve[-1]:.6e}; tols "
+              + ", ".join(f"{tol:.6e} (block {b})" for b, tol in tols)
+              + " and one tol=None")
+        for b, tol in tols + [(SERVE_ITERS // T, None)]:
+            plan.append((u0, tol))
+            expect.append(b)
+
+    def make():
+        return [SolveRequest(grid=u0, tol=tol, max_iters=SERVE_ITERS,
+                             policy="temporal", t=T) for u0, tol in plan]
+    return make, expect
+
+
+def served(make, superblock: int, tracer=None):
+    """One served pass of the mix; returns (server, requests)."""
+    from repro_torch.serve import SolveServer
+    srv = SolveServer(max_slots=SERVE_SLOTS, superblock=superblock,
+                      tracer=tracer)
+    reqs = srv.solve(make())
+    return srv, reqs
+
+
+def served_blocks(tracer) -> tuple[int, int]:
+    """Blocks a served trace accounts for: the superblocks' block counts
+    (one batched K1 and one batched K2 for the residuals each), and the
+    lone run_converged's realized blocks (one K1 each)."""
+    recs = obs_trace.span_records(tracer)
+    return (sum(r["attrs"]["blocks"] for r in recs
+                if r["name"] == "serve.block" and not r["attrs"].get("lone")),
+            sum(r["attrs"]["iters_done"] // T for r in recs
+                if r["name"] == "engine.run_converged"))
+
+
+def check_solo(reqs, label: str) -> None:
+    """Every request bit for bit its solo run at its realized count, on a
+    T multiple, converged within tol where it has one."""
+    for i, r in enumerate(reqs):
+        solo = engine.run(r.grid, policy=r.key.policy, iters=r.iters_done,
+                          t=r.key.t)
+        check(torch.equal(r.result, solo.cpu()),
+              f"{label} request {i} != its solo run at {r.iters_done}")
+        check(r.iters_done % T == 0 and 0 < r.iters_done <= SERVE_ITERS,
+              f"{label} request {i} ran {r.iters_done} sweeps")
+        if r.tol is not None:
+            check(r.converged and r.residual <= r.tol,
+                  f"{label} request {i} residual {r.residual} > {r.tol}")
+
+
+def phase_tuner(smi: str):
+    """SolveServer.warm on the paper grid in f32 and bf16: one
+    measurement a cell, none on the second warm. Returns the winners."""
+    from repro_torch.engine import tune
+    from repro_torch.serve import SolveServer
+    path = build.build_dir() / "engine_tune.json"
+    path.unlink(missing_ok=True)
+    os.environ[tune.CACHE_ENV] = str(path)
+    tune.clear()
+    srv = SolveServer()
+    shape = (NY + 2, NX + 2)
+    won = {}
+    for dname, dtype in DTYPES.items():
+        before = tune.measure_count
+        won[dname] = srv.warm([shape], dtype=dtype, iters=SERVE_ITERS,
+                              t=T)[shape]
+        check(tune.measure_count == before + 1,
+              f"warm {dname} measured {tune.measure_count - before} times")
+    for key, rec in json.loads(path.read_text()).items():
+        print(f"tune {key.split('|')[1]} {shape}: winner {rec['policy']}; "
+              "us a sweep " + ", ".join(f"{p} {us}" for p, us in
+                                        rec["us_per_sweep"].items())
+              + f"; skipped {rec['skipped']} on {smi}")
+    before = tune.measure_count
+    for dname, dtype in DTYPES.items():
+        again = srv.warm([shape], dtype=dtype, iters=SERVE_ITERS, t=T)
+        check(again == {shape: won[dname]}, f"second warm {dname} {again}")
+    check(tune.measure_count == before,
+          "a second warm must not measure again")
+    return won
+
+
+def phase_solve_serve(smi: str, stats) -> None:
+    from repro_torch.serve import SolveRejected, SolveRequest, SolveServer
+    print(f"== phase 12: stencil solves as a service, SolveServer("
+          f"max_slots={SERVE_SLOTS}, superblock={SERVE_SUPERBLOCK}) at the "
+          f"paper's grid, policy=temporal t={T} ==")
+    won = phase_tuner(smi)
+    probe = make_laplace_problem(NY, NX)
+    try:
+        SolveServer().submit(SolveRequest(grid=probe, tol=1e-3,
+                                          max_iters=1280, policy="temporal",
+                                          t=64))
+        print("bench_serve's t=64 is admitted on this card")
+    except SolveRejected as e:
+        print(f"bench_serve's t=64 is rejected at admission:\n{e}")
+    make, expect = serve_mix(smi)
+
+    # one at a time: each request's fixed max_iters through engine.run;
+    # and the same with each result copied to the host, as served ones are
+    def one_at_a_time(host=False):
+        outs = [engine.run(r.grid, policy="temporal", iters=r.max_iters,
+                           t=T) for r in make()]
+        return [u.to("cpu", copy=True) for u in outs] if host else outs
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+    solo_wall = timed(one_at_a_time)
+    solo_host_wall = timed(lambda: one_at_a_time(host=True))
+
+    tracer = obs_trace.Tracer()
+    engine.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    srv, reqs = served(make, SERVE_SUPERBLOCK, tracer)
+    lone = srv.submit(SolveRequest(grid=make_laplace_problem(NY, NX),
+                                   tol=reqs[2].tol, max_iters=SERVE_ITERS,
+                                   policy="temporal", t=T))
+    before = srv.stats()["launches"]
+    n_conv = sum(r["name"] == "engine.run_converged"
+                 for r in obs_trace.span_records(tracer))
+    srv.drain()
+    torch.cuda.synchronize()
+    counts, variants = dict(engine.LAUNCHES), dict(engine.TEMPORAL_VARIANTS)
+    k2_variants = dict(engine.ROWCHUNK_VARIANTS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    recs = obs_trace.span_records(tracer)
+    convs = [r for r in recs if r["name"] == "engine.run_converged"]
+    print(f"served launches {counts}; K1 kernels {variants}; K2 kernels "
+          f"{k2_variants}; server "
+          f"{srv.stats()['launches']} launches; peak {peak:.2f} GiB on {smi}")
+    check(srv.stats()["launches"] == before + 1 and len(convs) == n_conv + 1
+          and convs[-1]["attrs"]["iters_done"] == lone.iters_done,
+          "the lone request must be one server launch of run_converged")
+    batched, lone_blocks = served_blocks(tracer)
+    want = batched + lone_blocks
+    check(counts == {"shifted": 0, "rowchunk": batched, "dbuf": 0,
+                     "temporal": want},
+          f"served launches {counts} != the trace's blocks: K1 {want}, "
+          f"K2 (residuals) {batched}")
+    check(variants == {"jacobi5": want, "laplace9": 0, "radius2": 0,
+                       "general": 0},
+          f"every served K1 launch must be the jacobi5 kernel: {variants}")
+    check(k2_variants == {"jacobi5": batched, "laplace9": 0, "radius2": 0,
+                          "general": 0},
+          f"every served K2 launch must be the jacobi5 kernel: "
+          f"{k2_variants}")
+    check(len(srv.buckets) == len(SERVE_BUCKETS),
+          f"{len(srv.buckets)} buckets for {len(SERVE_BUCKETS)} grids")
+    got = [r.iters_done // T for r in reqs]
+    print(f"blocks a request: realized {got}, from the solo curves {expect}")
+    check(got == expect, "realized blocks != the solo residual curves'")
+    check_solo(reqs + [lone], "served")
+    stats["temporal"]["paths"] = {stats["temporal"]["path"]:
+                                  stats["temporal"]["launches"],
+                                  "solve_serve": want}
+    stats["rowchunk"]["paths"] = {stats["rowchunk"]["path"]:
+                                  stats["rowchunk"]["launches"],
+                                  "solve_serve": batched}
+
+    _, one = served(make, 1)
+    for a, b in zip(reqs, one):
+        check(a.iters_done == b.iters_done and a.residual == b.residual
+              and a.converged == b.converged
+              and torch.equal(a.result, b.result),
+              "superblock 1 and superblock 4 must serve the same results")
+    print("superblock 1 == superblock 4: iters_done, residuals and results")
+
+    tuned = [SolveRequest(grid=make_laplace_problem(NY, NX, dtype=dtype),
+                          tol=tol, max_iters=SERVE_ITERS, policy="tuned",
+                          t=T)
+             for dtype in DTYPES.values() for tol in (reqs[1].tol, None)]
+    SolveServer(max_slots=SERVE_SLOTS).solve(tuned)
+    for r in tuned:
+        check(r.key.policy == won[r.key.dtype],
+              f"tuned {r.key.dtype} ran {r.key.policy}, tune won "
+              f"{won[r.key.dtype]}")
+        solo = engine.run(r.grid, policy=won[r.key.dtype],
+                          iters=r.iters_done, t=T)
+        check(torch.equal(r.result, solo.cpu()),
+              f"tuned {r.key.dtype} != its solo run under {r.key.policy}")
+    print(f"policy='tuned' served {[r.iters_done for r in tuned]} sweeps "
+          f"under {won}, bit for bit their solo runs")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv, reqs = served(make, SERVE_SUPERBLOCK)
+    wall = time.perf_counter() - t0
+    kernels = top_kernels(lambda: served(make, SERVE_SUPERBLOCK), n=200)
+    dev_ms = sum(ms for _, ms, _ in kernels)
+    k1_ms = sum(ms for name, ms, _ in kernels if "temporal" in name)
+    k2_ms = sum(ms for name, ms, _ in kernels if "rowchunk" in name)
+    d2h_ms = sum(ms for name, ms, _ in kernels if "DtoH" in name)
+    points = {r.key.shape: (r.key.shape[0] - 2) * (r.key.shape[1] - 2)
+              for r in reqs}
+    done = sum(points[r.key.shape] * r.iters_done for r in reqs)
+    fixed = sum(points[r.key.shape] * r.max_iters for r in reqs)
+    stats_ = srv.stats()
+    supers = sum(b["launches"] for b in stats_["per_bucket"].values())
+    print(f"served: {len(reqs)} requests in {wall:.6f}s wall, "
+          f"{done / wall / 1e9:.3f} GPt/s realized ({done / 1e9:.3f} GPt), "
+          f"{stats_['launches']} server launches, evicted_early "
+          f"{stats_['evicted_early']}; one at a time: {solo_wall:.6f}s, "
+          f"{fixed / solo_wall / 1e9:.3f} GPt/s ({fixed / 1e9:.3f} GPt), "
+          f"{solo_host_wall:.6f}s with each result copied to the host; "
+          f"served / one at a time {wall / solo_wall:.4f}x wall "
+          f"({wall / solo_host_wall:.4f}x with the copies); sweeps "
+          f"saved by eviction {sum(r.max_iters - r.iters_done for r in reqs)}"
+          f" of {sum(r.max_iters for r in reqs)}; on {smi}")
+    print(f"host waits: {supers} superblock or lone launches + {len(reqs)} "
+          f"result copies for {len(reqs)} requests "
+          f"({(supers + len(reqs)) / len(reqs):.2f} a request; a lone "
+          f"run_converged waits once a block besides)")
+    print(f"device busy: {dev_ms:.3f} ms of kernels and copies under "
+          f"{wall * 1e3:.3f} ms of wall ({dev_ms / (wall * 1e3):.1%}); K1 "
+          f"{k1_ms:.3f} ms, K2 (the residuals' sweeps) {k2_ms:.3f} ms, the "
+          f"results' copies to the host {d2h_ms:.3f} ms, the rest "
+          f"(differences, maxima, freezes, ring and slot copies) "
+          f"{dev_ms - k1_ms - k2_ms - d2h_ms:.3f} ms; on {smi}; the kernels "
+          f"with the most time:")
+    stats["temporal"]["solve_serve"] = {
+        "wall_s": wall, "gpts": done / wall / 1e9, "one_at_a_time_s":
+        solo_wall, "one_at_a_time_host_s": solo_host_wall,
+        "device_ms": dev_ms, "k1_ms": k1_ms, "k2_ms": k2_ms,
+        "d2h_ms": d2h_ms}
+    for name, ms, n in kernels[:8]:
+        print(f"  {ms:10.3f} ms {n:5d}x  {name[:100]}")
+
+
 def main() -> None:
     smi, peaks = card()
     print(f"== phase 1: card: {smi} ==")
@@ -1281,20 +1672,25 @@ def main() -> None:
     phase_ssm(smi, stats)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_stream(peaks, stats)
+    phase_stream(peaks, stats, smi)
     gc.collect()
     torch.cuda.empty_cache()
     phase_hybrid(smi, stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_solve_serve(smi, stats)
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
         s = stats[policy]
         kernels.append({
             "name": f"{kid} {policy}", "route": "cuda", "source": SOURCE,
             "replaces": replaces, "launches": s["launches"],
-            "path": s["path"], "max_abs_err": s["max_abs_err"],
+            "path": s["path"], **({"paths": s["paths"]} if "paths" in s
+                                  else {}),
+            "max_abs_err": s["max_abs_err"],
             "dtype": "bfloat16", **s["bfloat16"],
             "float32": s["float32"],
-            **({"cases": s["cases"]} if "cases" in s else {})})
+            **{k: s[k] for k in ("cases", "solve_serve") if k in s}})
     kid, replaces = FLASH
     s = stats["flash"]
     for dname, kernel in (("bfloat16", "wgmma (tensor cores)"),
@@ -1329,7 +1725,9 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"], "shape": shape,
             **{k: s[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")},
-            **{k: s[k] for k in ("traffic_ms", "split", "sync_ms")
+            **{k: s[k] for k in ("bytes_once_ms", "traffic_ms", "l2_tbs",
+                                 "l2_probe_tbs", "k5c_l2_tbs", "factors",
+                                 "split", "sync_ms")
                if k in s}})
     print(json.dumps({"kernels": kernels}))
     print(smi)

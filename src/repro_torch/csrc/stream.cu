@@ -387,6 +387,47 @@ __global__ void __launch_bounds__(REP_TX* REP_TY)
 }
 
 // ---------------------------------------------------------------------------
+// The L2 read-rate probe: a measurement, not a port of any TPU kernel. It
+// prices K5c's re-reads, which this card serves from its L2. As K5c does,
+// each block re-reads its own tile `passes` times with the same
+// ld.volatile.global.v4 loads: a tile is U x 256 vectors (16 KB at U = 4,
+// 32 KB at U = 8), each thread issues its U loads of a pass (a warp's 32
+// lanes on neighbouring vectors) before it adds any, and the words are
+// summed into a u32 that is stored (one atomicAdd a warp), so no load can
+// be dropped. A buffer of a few tiles an SM that fits the L2 is then served
+// by the L2 on every pass after the first. The sum, passes x (the
+// buffer's words summed mod 2^32), does not depend on the order, so the
+// wrapper checks it exactly. The rate depends on the layout (U, tiles an
+// SM, passes) by a few percent either way on an H100, and K5c itself has
+// read faster than some of them, so the caller measures several layouts
+// and takes the highest rate it sees.
+
+template <int U>
+__global__ void __launch_bounds__(THREADS)
+    l2_probe_kernel(const uint4* __restrict__ x, int n, int passes,
+                    unsigned int* out) {
+  const int base = blockIdx.x * (THREADS * U) + threadIdx.x;
+  unsigned int acc = 0;
+  for (int p = 0; p < passes; ++p) {
+    uint4 v[U];
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      const int i = base + k * THREADS;
+      v[k] = i < n ? ld_volatile(x + i) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int k = 0; k < U; ++k) {
+      acc += v[k].x + v[k].y + v[k].z + v[k].w;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  }
+  if ((threadIdx.x & 31) == 0) atomicAdd(out, acc);
+}
+
+// ---------------------------------------------------------------------------
 // K6a: move a (bm + 2)-row window and write its interior, no math. out is
 // (h - 2, w - 2) = u[1:-1, 1:-1]. One block per (bm-row block, column chunk
 // of CHUNK_BYTES): it stages the window's rows and the chunk's columns plus
@@ -617,4 +658,24 @@ extern "C" cudaError_t repro_compute_only(const void* u, void* out, int dtype,
   if (dtype == 0) return launch_compute_only<F32>(u, out, h, w, bm, s);
   if (dtype == 1) return launch_compute_only<BF16>(u, out, h, w, bm, s);
   return cudaErrorInvalidValue;
+}
+
+// x: n 16-byte vectors, 16-byte aligned; out: one u32, zeroed by the caller.
+// One block a tile of THREADS x unroll vectors; unroll is 4 or 8.
+extern "C" cudaError_t repro_l2_probe(const void* x, void* out, int n,
+                                      int passes, int unroll, void* stream) {
+  if (n < 1 || passes < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint4* v = static_cast<const uint4*>(x);
+  unsigned int* o = static_cast<unsigned int*>(out);
+  if (unroll == 4) {
+    l2_probe_kernel<4><<<(n + THREADS * 4 - 1) / (THREADS * 4), THREADS, 0,
+                         s>>>(v, n, passes, o);
+  } else if (unroll == 8) {
+    l2_probe_kernel<8><<<(n + THREADS * 8 - 1) / (THREADS * 8), THREADS, 0,
+                         s>>>(v, n, passes, o);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }

@@ -18,7 +18,8 @@ Typical use::
 Layers: ``device`` (hardware models), ``plan`` (tile/window/temporal-depth
 planning, cached per device), ``schedule`` (how ``iters`` sweeps become
 fused blocks), ``policies`` (the CUDA kernels and their plain versions),
-``dispatch`` (registry + run/step).
+``dispatch`` (registry + run/step), ``tune`` (the measured autotuner
+behind ``policy="tuned"``).
 """
 from repro_torch.engine.device import (  # noqa: F401
     DeviceModel,
@@ -74,3 +75,4 @@ from repro_torch.engine.dispatch import (  # noqa: F401
     run_converged,
     step,
 )
+from repro_torch.engine import tune  # noqa: F401,E402

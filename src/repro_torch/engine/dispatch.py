@@ -3,7 +3,8 @@
 The port's copy of ``repro.engine.dispatch``. Every execution policy
 registers itself here with its metadata (paper provenance, modeled
 bytes/point). ``run`` is the public entry point: pick a policy
-(``"auto"`` consults the device-aware heuristic), build the
+(``"auto"`` consults the device-aware heuristic, ``"tuned"`` the measured
+cache in :mod:`repro_torch.engine.tune`), build the
 :class:`~repro_torch.engine.schedule.SweepSchedule`, and execute it as
 kernel launches.
 
@@ -146,9 +147,9 @@ def step(u: torch.Tensor, spec: StencilSpec | None = None, *,
     """One kernel invocation: a single sweep, or ``t`` fused sweeps for the
     temporal policy."""
     spec = spec if spec is not None else jacobi_2d_5pt()
-    if policy == "auto":
-        # A single step advances exactly one sweep, so auto never picks a
-        # fused policy here (run() with iters does).
+    if policy in ("auto", "tuned"):
+        # A single step advances exactly one sweep, so auto/tuned never
+        # pick a fused policy here (run() with iters does).
         policy = resolve_auto(u.shape[-2:], u.dtype, spec, iters=1, t=1,
                               device=device)
     p = get_policy(policy)
@@ -238,7 +239,8 @@ def run_converged(u: torch.Tensor, spec: StencilSpec | None = None, *,
         sched = build_schedule(cadence, spec=spec, shape=u.shape,
                                dtype=u.dtype, policy=policy, t=cadence,
                                bm=bm, device=device,
-                               remainder_policy=remainder_policy)
+                               remainder_policy=remainder_policy,
+                               torch_device=u.device.type)
         max_blocks = max_iters // cadence
         tol_f32 = torch.tensor(-1.0 if tol is None else tol,
                                dtype=torch.float32, device=u.device)
@@ -274,7 +276,8 @@ def run_batched(us: torch.Tensor, spec: StencilSpec | None = None, *,
     spec = spec if spec is not None else jacobi_2d_5pt()
     sched = build_schedule(iters, spec=spec, shape=us.shape[1:],
                            dtype=us.dtype, policy=policy, t=t, bm=bm,
-                           device=device, remainder_policy=remainder_policy)
+                           device=device, remainder_policy=remainder_policy,
+                           torch_device=us.device.type)
     return _execute_schedule(us, sched, spec, bm, device, donate)
 
 
@@ -285,11 +288,11 @@ def run(u: torch.Tensor, spec: StencilSpec | None = None, *,
         donate: bool = False) -> torch.Tensor:
     """Advance a ringed grid by exactly ``iters`` sweeps of ``spec``.
 
-    ``policy`` is a registry name, ``"auto"`` (device-aware heuristic) or
-    ``"reference"``. ``device`` is a registry name or
-    :class:`DeviceModel`; plans are validated against its fast-memory
-    budget (None = :func:`~repro_torch.engine.device.detect`). The
-    ``iters // t`` fused blocks plus the ``iters % t`` remainder under
+    ``policy`` is a registry name, ``"auto"`` (device-aware heuristic),
+    ``"tuned"`` (measured winner) or ``"reference"``. ``device`` is a
+    registry name or :class:`DeviceModel`; plans are validated against its
+    fast-memory budget (None = :func:`~repro_torch.engine.device.detect`).
+    The ``iters // t`` fused blocks plus the ``iters % t`` remainder under
     ``remainder_policy`` come from :func:`build_schedule`; this function
     executes them. ``donate=True`` lets the run use ``u``'s storage as
     one of its two buffers; the caller's tensor is invalid afterwards.
@@ -300,7 +303,8 @@ def run(u: torch.Tensor, spec: StencilSpec | None = None, *,
         sched = build_schedule(iters, spec=spec, shape=u.shape,
                                dtype=u.dtype, policy=policy, t=t, bm=bm,
                                device=device,
-                               remainder_policy=remainder_policy)
+                               remainder_policy=remainder_policy,
+                               torch_device=u.device.type)
         sp.set(policy=sched.policy, t=sched.t,
                fused_blocks=sched.fused_blocks, remainder=sched.remainder,
                launch="loop")

@@ -6,7 +6,9 @@ The port's copy of ``repro.engine.schedule`` for single-device solves. A
 blocks run, and how many remainder sweeps follow under which non-fused
 policy. For the same arguments it equals the reference's schedule field
 for field; ``auto`` resolves against the port's planner, whose 2-D tiles
-let ``temporal`` fit on ``gpu_sm90``.
+let ``temporal`` fit on ``gpu_sm90``, and ``tuned`` against the port's
+own measured cache (:mod:`repro_torch.engine.tune`), timed on
+``torch_device``.
 
 Distributed schedules (``exchange_cadence=True``) and their pricing come
 with the distributed executor.
@@ -89,7 +91,8 @@ def build_schedule(iters: int, *, spec: StencilSpec, shape, dtype,
                    bm: int | None = None,
                    device: "str | DeviceModel | None" = None,
                    remainder_policy: str = DEFAULT_REMAINDER_POLICY,
-                   exchange_cadence: bool = False) -> SweepSchedule:
+                   exchange_cadence: bool = False,
+                   torch_device: str = "cuda") -> SweepSchedule:
     """Resolve ``(iters, t, policy)`` into a :class:`SweepSchedule`, inside
     an ``engine.build_schedule`` span (a no-op unless a tracer is
     installed)."""
@@ -98,7 +101,7 @@ def build_schedule(iters: int, *, spec: StencilSpec, shape, dtype,
         sched = _build_schedule(
             iters, spec=spec, shape=shape, dtype=dtype, policy=policy, t=t,
             bm=bm, device=device, remainder_policy=remainder_policy,
-            exchange_cadence=exchange_cadence)
+            exchange_cadence=exchange_cadence, torch_device=torch_device)
         sp.set(policy=sched.policy, t=sched.t,
                fused_blocks=sched.fused_blocks, remainder=sched.remainder,
                overlap=sched.overlap)
@@ -110,13 +113,15 @@ def _build_schedule(iters: int, *, spec: StencilSpec, shape, dtype,
                     bm: int | None = None,
                     device: "str | DeviceModel | None" = None,
                     remainder_policy: str = DEFAULT_REMAINDER_POLICY,
-                    exchange_cadence: bool = False) -> SweepSchedule:
+                    exchange_cadence: bool = False,
+                    torch_device: str = "cuda") -> SweepSchedule:
     """Resolve ``(iters, t, policy)`` into a :class:`SweepSchedule`.
 
-    ``policy`` may be a registry name, ``"reference"`` (the plain oracle)
-    or ``"auto"`` (device-aware heuristic, resolved with the real
-    ``iters`` and ``t``). ``t`` groups sweeps into blocks for fused
-    policies. An explicit ``t`` that must be clamped to ``iters`` warns.
+    ``policy`` may be a registry name, ``"reference"`` (the plain oracle),
+    ``"auto"`` (device-aware heuristic) or ``"tuned"`` (measured winner,
+    timed on ``torch_device`` at most once per cell); both are resolved
+    with the real ``iters`` and ``t``. ``t`` groups sweeps into blocks
+    for fused policies. An explicit ``t`` that must be clamped to ``iters`` warns.
     A fused ``remainder_policy`` is rejected.
     """
     if exchange_cadence:
@@ -130,10 +135,10 @@ def _build_schedule(iters: int, *, spec: StencilSpec, shape, dtype,
         policy = resolve_auto(shape, dtype, spec, iters=iters, t=t,
                               device=device)
     elif policy == "tuned":
-        raise NotImplementedError(
-            "policy='tuned' needs the measured autotuner (engine/tune.py), "
-            "which repro_torch does not have yet; use 'auto' or a policy "
-            "name")
+        from repro_torch.engine import tune  # deferred: tune imports dispatch
+        policy = tune.best_policy(shape, dtype, spec, iters=iters, t=t,
+                                  bm=bm, torch_device=torch_device,
+                                  device=device)
     if policy == "reference":
         fused = False
     else:

@@ -135,6 +135,7 @@ SIGNATURES = {
         "repro_stream_replicated": [P, P, I, I, I, I, I, P],
         "repro_dma_only": [P, P, I, I, I, I, P],
         "repro_compute_only": [P, P, I, I, I, I, P],
+        "repro_l2_probe": [P, P, I, I, I, P],
     },
 }
 

@@ -11,6 +11,10 @@ of how data moves between device memory and a core:
   keeping rows in flight (``sync=False``);
 * :func:`stream_replicated` (K5c): every block read ``factor`` times.
 
+:func:`l2_read_probe` is no port: it measures the rate at which the card's
+L2 serves K5c's re-reads (the same volatile 16-byte loads), the rate
+K5c's bound is priced at.
+
 Each follows the device of its input: on a CUDA tensor it launches its
 hand-written kernel in ``repro_torch/csrc/stream.cu`` (or raises; it never
 falls back), on a CPU tensor it runs its ``*_plain`` version. They take
@@ -41,6 +45,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 RING_BYTES = 227 * 1024 - 128
 #: K5c's blocks tile rows 32 at a time along the launch grid's y extent.
 MAX_REPLICATED_ROWS = 32 * 65535
+#: The L2 probe's loads in flight a thread, the layouts it is compiled for.
+PROBE_UNROLLS = (4, 8)
+
+
+def probe_tile(unroll: int) -> int:
+    """Bytes of one L2 probe block's tile (``csrc/stream.cu``: 256 threads x
+    ``unroll`` 16-byte vectors)."""
+    return 256 * unroll * 16
 
 
 def reset_launch_counts() -> None:
@@ -201,3 +213,48 @@ def stream_replicated(x: torch.Tensor, *, bm: int,
     vec = int(w * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0)
     return _launch("stream_replicated", "repro_stream_replicated", x,
                    _DTYPE_CODE[x.dtype], h, w, factor, vec)
+
+
+def l2_read_probe_plain(x: torch.Tensor, *, passes: int) -> torch.Tensor:
+    """``passes`` x the sum of ``x``'s int32 words, mod 2**32, as int32."""
+    total = int(x.to(torch.int64).sum()) * passes % 2**32
+    return torch.tensor([total - 2**32 if total >= 2**31 else total],
+                        dtype=torch.int32)
+
+
+def l2_read_probe(x: torch.Tensor, *, passes: int,
+                  unroll: int = 8) -> torch.Tensor:
+    """Re-read the int32 buffer ``x`` ``passes`` times and return the
+    words' wrapped sum (one int32, on ``x``'s device).
+
+    On the card each block re-reads its own tile of :func:`probe_tile`
+    bytes ``passes`` times with K5c's volatile 16-byte loads, ``unroll``
+    (one of :data:`PROBE_UNROLLS`) in flight a thread; a buffer that fits
+    the L2 (half of it, or less) is then read from the L2 on every pass
+    after the first, so ``passes * x.nbytes`` over the kernel's time is the
+    L2's read rate. A buffer of a whole number of tiles an SM gives every
+    SM the same work.
+    """
+    if x.dtype != torch.int32 or x.numel() % 4 or x.numel() == 0:
+        raise ValueError(f"the probe reads a non-empty int32 buffer of a "
+                         f"multiple of 4 words; got {x.dtype} of "
+                         f"{x.numel()}")
+    if passes < 1:
+        raise ValueError(f"passes must be positive; got {passes}")
+    if unroll not in PROBE_UNROLLS:
+        raise ValueError(f"the probe is compiled for unroll in "
+                         f"{PROBE_UNROLLS}; got {unroll}")
+    if _device(x) == "cpu":
+        return l2_read_probe_plain(x, passes=passes)
+    if x.data_ptr() % 16 or x.numel() // 4 >= 2**31:
+        raise ValueError("the probe reads a 16-byte aligned buffer of "
+                         "fewer than 2**31 vectors")
+    from repro_torch.kernels.build import load
+    out = torch.zeros(1, dtype=torch.int32, device=x.device)
+    err = load("stream").repro_l2_probe(
+        x.data_ptr(), out.data_ptr(), x.numel() // 4, passes, unroll,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"l2_read_probe kernel launch failed: "
+                           f"cudaError_t {err}")
+    return out

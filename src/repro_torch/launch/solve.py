@@ -7,6 +7,13 @@ reports wall time, GPt/s and the final residual. Runs on the card unless
   PYTHONPATH=src python -m repro_torch.launch.solve --ny 1024 --nx 9216 \\
       --iters 1003 --dtype bfloat16 --check
 
+``--serve`` routes the solve through
+:class:`repro_torch.serve.SolveServer` as one request (admission,
+bucketing, superblocks of batched launches, eviction on ``--tol``) and
+prints its bucket, launches and realized iterations; ``--trace PATH``
+writes the run's spans and counters as Chrome-trace JSON, which
+``python -m repro_torch.obs summarize|validate PATH`` reads.
+
 ``--check`` compares against the port's own ``reference`` policy (the
 plain oracle) at the realized iteration count: max |err| < 1e-4 in f32,
 5e-2 in bf16. A bf16 solve may instead be within 5e-2 of the reference
@@ -21,7 +28,11 @@ import time
 
 import torch
 
-POLICIES = ["reference", "shifted", "rowchunk", "dbuf", "temporal", "auto"]
+from repro_torch.obs.compare import reconcile
+from repro_torch.obs.trace import Tracer, use_tracer
+
+POLICIES = ["reference", "shifted", "rowchunk", "dbuf", "temporal", "auto",
+            "tuned"]
 
 
 def _sync(dev: torch.device) -> None:
@@ -48,7 +59,46 @@ def main(argv=None) -> None:
                     help="where the grid lives; cuda launches the kernels")
     ap.add_argument("--check", action="store_true",
                     help="verify against the reference policy")
+    ap.add_argument("--serve", action="store_true",
+                    help="route the solve through SolveServer as one "
+                         "request: admission, bucketing, superblocks of "
+                         "batched launches, eviction on --tol")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write the run's spans and counters as Chrome-trace "
+                         "JSON (inspect with 'python -m repro_torch.obs "
+                         "summarize PATH')")
     args = ap.parse_args(argv)
+
+    if args.trace or args.serve:
+        # --serve installs a tracer so the progress sink sees its
+        # serve.block spans; the file is written on --trace.
+        tracer = Tracer(sink=_serve_progress if args.serve else None)
+        with use_tracer(tracer):
+            _dispatch(args)
+        if args.trace:
+            tracer.write_trace(args.trace)
+            print(f"trace: {len(tracer.events)} spans, "
+                  f"{len(tracer.counters)} counter samples -> {args.trace}")
+            print(tracer.describe())
+            print(reconcile(tracer).describe())
+    else:
+        _dispatch(args)
+
+
+def _serve_progress(ev) -> None:
+    """Tracer sink: one line per completed ``serve.block`` span."""
+    if ev.name != "serve.block":
+        return
+    a = ev.attrs
+    mr = a.get("max_residual")
+    print(f"[serve] launch={a.get('launch', '?')} "
+          f"blocks={a.get('blocks', 1)}{' lone' if a.get('lone') else ''} "
+          f"active={a.get('active')} queue={a.get('queue')} "
+          f"max_residual={'?' if mr is None else format(mr, '.3e')} "
+          f"wall={ev.dur_us / 1e3:.1f}ms")
+
+
+def _dispatch(args) -> None:
 
     from repro_torch import engine
     from repro_torch.core.stencil import jacobi_2d_5pt, make_laplace_problem
@@ -59,6 +109,9 @@ def main(argv=None) -> None:
     dev = u0.device
     if dev.type == "cuda":
         print(f"card: {torch.cuda.get_device_name(dev)}")
+    if args.serve:
+        _serve(args, u0)
+        return
 
     def solve():
         if args.tol is not None:
@@ -90,18 +143,60 @@ def main(argv=None) -> None:
           f"mean={float(inner.mean()):.6f}  max={float(inner.max()):.6f}")
 
     if args.check:
-        limit = 1e-4 if dtype == torch.float32 else 5e-2
-        errs = {}
-        starts = {args.dtype: u0, "float32": u0.float()}
-        for name, start in starts.items():
-            want = engine.run(start, policy="reference", iters=iters_done)
-            errs[name] = float((inner - want[1:-1, 1:-1].float()).abs().max())
-            print(f"max |err| vs reference in {name} at {iters_done} iters: "
-                  f"{errs[name]:.3e}")
-        if not min(errs.values()) < limit:
-            raise SystemExit(f"CHECK FAILED: {min(errs.values()):.3e} >= "
-                             f"{limit:g}")
-        print("CHECK OK")
+        _check(args, u0, inner, iters_done)
+
+
+def _serve(args, u0: torch.Tensor) -> None:
+    """One request through the solve server; on the card it is timed on
+    its second pass (the first builds the kernels)."""
+    from repro_torch.serve import SolveRequest, SolveServer
+
+    def serve():
+        server = SolveServer(torch_device=u0.device)
+        req = server.submit(SolveRequest(grid=u0, tol=args.tol,
+                                         max_iters=args.iters,
+                                         policy=args.kernel, t=args.t))
+        return server, req
+
+    if u0.device.type == "cuda":
+        serve()[0].drain()
+    server, req = serve()
+    print(f"bucket: {req.key.describe()}  "
+          f"target_blocks={req.target_blocks}")
+    _sync(u0.device)
+    t0 = time.perf_counter()
+    server.drain()
+    dt = time.perf_counter() - t0
+    stats = server.stats()
+    inner = req.result[1:-1, 1:-1].to(torch.float32)
+    gpts = args.ny * args.nx * req.iters_done / dt / 1e9
+    print(f"kernel={args.kernel} serve=1 device={u0.device} "
+          f"grid={args.ny}x{args.nx} iters={req.iters_done}/{args.iters} "
+          f"(evicted_early={stats['evicted_early']} "
+          f"launches={stats['launches']})")
+    print(f"wall={dt:.6f}s  GPt/s={gpts:.3f}  residual={req.residual:.3e}  "
+          f"mean={float(inner.mean()):.6f}  max={float(inner.max()):.6f}")
+    if args.check:
+        _check(args, u0, inner.to(u0.device), req.iters_done)
+
+
+def _check(args, u0: torch.Tensor, inner: torch.Tensor,
+           iters_done: int) -> None:
+    """``inner`` (f32) against the reference policy at ``iters_done``
+    sweeps, run in the grid's dtype and in f32; either may pass."""
+    from repro_torch import engine
+    limit = 1e-4 if u0.dtype == torch.float32 else 5e-2
+    errs = {}
+    starts = {args.dtype: u0, "float32": u0.float()}
+    for name, start in starts.items():
+        want = engine.run(start, policy="reference", iters=iters_done)
+        errs[name] = float((inner - want[1:-1, 1:-1].float()).abs().max())
+        print(f"max |err| vs reference in {name} at {iters_done} iters: "
+              f"{errs[name]:.3e}")
+    if not min(errs.values()) < limit:
+        raise SystemExit(f"CHECK FAILED: {min(errs.values()):.3e} >= "
+                         f"{limit:g}")
+    print("CHECK OK")
 
 
 if __name__ == "__main__":

@@ -813,3 +813,142 @@ def test_access_tables_run_on_the_card(cuda):
         for line in access.table_rows(table, cuda, scale=8):
             name, us, _ = line.split(",")
             assert (float(us) == 0.0) == name.startswith("paper_"), line
+
+
+@pytest.mark.parametrize("unroll", [4, 8])
+@pytest.mark.parametrize("n,passes", [(4, 1), (4096, 3), (8196, 2),
+                                      (3 * 2**20, 5)])
+def test_l2_probe_sum_equals_plain(cuda, n, passes, unroll):
+    from repro_torch.kernels import stream as TK
+    g = torch.Generator().manual_seed(n)
+    x = torch.randint(-2**31, 2**31 - 1, (n,), generator=g,
+                      dtype=torch.int32).to(cuda)
+    got = TK.l2_read_probe(x, passes=passes, unroll=unroll)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), TK.l2_read_probe_plain(x, passes=passes))
+
+
+def _solo_tol(u0, policy, target):
+    """A tol that a solve of ``u0`` reaches at exactly the new low of its
+    solo residual curve (blocks of 8 sweeps) nearest block ``target``:
+    halfway between that low and the lowest residual before it. Returns
+    (tol, blocks)."""
+    u, curve = u0, []
+    for _ in range(target + 10):
+        u = TE.run(u, policy=policy, iters=8, t=8)
+        curve.append(float(TS.residual(u, TS.jacobi_2d_5pt())))
+    lows = [b for b in range(1, len(curve)) if curve[b] < min(curve[:b])]
+    b = min(lows, key=lambda b: abs(b - target))
+    return (min(curve[:b]) + curve[b]) / 2, b + 1
+
+
+def _serve_on_card(cuda, superblock, policy="temporal", dtype=torch.float32):
+    """Five requests of 50 blocks of 8 on four slots; four with tols from
+    their own solo curves, one fixed. Returns (server, requests, kernel
+    launches, expected blocks, batched blocks, lone blocks)."""
+    from repro_torch.obs.trace import Tracer, span_records
+    from repro_torch.serve import SolveRequest, SolveServer
+    plan = []
+    for i, target in enumerate((11, 20, None, 30, 40)):
+        u0 = TS.make_laplace_problem(40, 300, dtype=dtype, left=1.0 - 0.1 * i,
+                                     device=cuda)
+        tol, blocks = (None, 50) if target is None else _solo_tol(
+            u0, policy, target)
+        plan.append((u0, tol, blocks))
+    reqs = [SolveRequest(grid=u0, tol=tol, max_iters=400, policy=policy,
+                         t=8) for u0, tol, _ in plan]
+    tracer = Tracer()
+    srv = SolveServer(max_slots=4, superblock=superblock, tracer=tracer)
+    TE.reset_launch_counts()
+    srv.solve(reqs)
+    torch.cuda.synchronize()
+    recs = span_records(tracer)
+    batched = sum(r["attrs"]["blocks"] for r in recs
+                  if r["name"] == "serve.block" and not r["attrs"].get("lone"))
+    lone = sum(r["attrs"]["iters_done"] // 8 for r in recs
+               if r["name"] == "engine.run_converged")
+    return (srv, reqs, dict(TE.LAUNCHES), [b for *_, b in plan], batched,
+            lone)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", ["temporal", "rowchunk"])
+def test_served_superblocks_equal_solo_runs(cuda, policy, dtype):
+    srv, reqs, launches, blocks, batched, lone = _serve_on_card(
+        cuda, 4, policy, dtype)
+    for r, b in zip(reqs, blocks):
+        assert r.done and r.iters_done == 8 * b
+        assert r.result.device.type == "cpu" and r.result.dtype == dtype
+        solo = TE.run(r.grid, policy=r.key.policy, iters=r.iters_done,
+                      t=r.key.t)
+        assert torch.equal(r.result, solo.cpu())
+        if r.tol is not None:
+            assert r.converged and r.residual <= r.tol
+    # a block: the policy's sweeps, then one batched K2 for the residuals
+    # (the lone bypass takes its residuals without a kernel)
+    sweeps = {"temporal": {"temporal": batched + lone, "rowchunk": batched},
+              "rowchunk": {"rowchunk": 9 * batched + 8 * lone}}[policy]
+    assert batched > 0 and launches == {"shifted": 0, "rowchunk": 0,
+                                        "dbuf": 0, "temporal": 0, **sweeps}
+    again = _serve_on_card(cuda, 1, policy, dtype)[1]
+    for a, b in zip(reqs, again):
+        assert (a.iters_done, a.residual) == (b.iters_done, b.residual)
+        assert torch.equal(a.result, b.result)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec", ["jacobi5", "laplace9"])
+def test_served_residuals_through_k2_equal_residual(cuda, spec, dtype):
+    """A superblock's residuals on the card (one batched K2 into a spare
+    buffer whose ring is garbage, the difference, one reduction) are bit
+    for bit ``residual``'s, a NaN lane included."""
+    from repro_torch.serve import solve as SS
+    spec = (TS.jacobi_2d_5pt() if spec == "jacobi5"
+            else TS.laplace_2d_9pt())
+    g = torch.Generator().manual_seed(3)
+    vs = torch.randn((3, 130, 517), generator=g).to(dtype).to(cuda)
+    vs[1, 40, 200] = float("nan")
+    key = SS.BucketKey(shape=(130, 517), dtype=str(dtype)[6:], spec=spec,
+                       policy="temporal", t=8, device=None,
+                       torch_device="cuda")
+    spare = torch.full_like(vs, float("inf"))
+    TE.reset_launch_counts()
+    got = SS._residuals(vs, key, spare)
+    assert TE.LAUNCHES["rowchunk"] == 1
+    want = TS.residual(vs, spec)
+    assert got.dtype == torch.float32 and got.shape == (3,)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(got[1].isnan())
+
+
+def test_served_readback_is_pinned_and_waited_on(cuda, monkeypatch):
+    """The superblock's history comes back through pinned host memory
+    behind an event, and the replay reads it only after that event."""
+    from repro_torch.serve import solve as SS
+    seen = []
+    real = SS._readback
+
+    def spy(xs, dev):
+        host, ev = real(xs, dev)
+        seen.append((all(h.is_pinned() for h in host), ev))
+        return host, ev
+    monkeypatch.setattr(SS, "_readback", spy)
+    _serve_on_card(cuda, 4)
+    assert seen and all(pinned for pinned, _ in seen)
+    assert all(isinstance(ev, torch.cuda.Event) and ev.query()
+               for _, ev in seen)
+
+
+def test_solve_server_lone_request_on_the_card(cuda):
+    from repro_torch.serve import SolveRequest, SolveServer
+    req = SolveRequest(grid=TS.make_laplace_problem(40, 300, device=cuda),
+                       tol=3e-3, max_iters=96, policy="temporal", t=8)
+    srv = SolveServer(max_slots=4)
+    TE.reset_launch_counts()
+    srv.solve([req])
+    torch.cuda.synchronize()
+    assert srv.stats()["launches"] == 1
+    assert TE.LAUNCHES["temporal"] == req.iters_done // 8
+    assert torch.equal(req.result, TE.run(req.grid, policy="temporal",
+                                          iters=req.iters_done,
+                                          t=8).cpu())

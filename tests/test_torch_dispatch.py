@@ -198,8 +198,11 @@ def test_registry_matches_reference():
 def test_unported_paths_raise():
     ts = TS.jacobi_2d_5pt()
     _, tu = _problem(14, 30, seed=8)
-    with pytest.raises(NotImplementedError, match="tune"):
-        TE.run(tu, ts, policy="tuned", iters=4)
+    from repro_torch.analysis import check_schedule
+    sched = TE.build_schedule(4, spec=ts, shape=tu.shape, dtype=tu.dtype,
+                              torch_device="cpu")
+    with pytest.raises(NotImplementedError, match="E1"):
+        check_schedule(sched, shape=tu.shape, program=object())
     with pytest.raises(NotImplementedError, match="distributed"):
         TE.build_schedule(4, spec=ts, shape=tu.shape, dtype=tu.dtype,
                           exchange_cadence=True)

@@ -189,3 +189,24 @@ def test_rowdma_plan_with_sync_keeps_one_row_in_flight(row_bytes, bm):
     own."""
     split, ring = TS.rowdma_plan(row_bytes, bm, True)
     assert split == 1 and ring == min(2, TS.RING_BYTES // row_bytes)
+
+
+@pytest.mark.parametrize("n,passes", [(4, 1), (4096, 3), (12, 64)])
+def test_l2_probe_plain_is_the_wrapped_word_sum(n, passes):
+    """The L2 probe's value on the CPU: ``passes`` x the buffer's int32
+    words summed mod 2**32 (what the card's kernel must store), and the
+    inputs it refuses."""
+    a = np.random.default_rng(n).integers(-2**31, 2**31 - 1, size=n,
+                                          dtype=np.int32)
+    want = int(a.astype(np.uint32).astype(np.uint64).sum()) * passes % 2**32
+    got = TS.l2_read_probe(torch.from_numpy(a), passes=passes)
+    assert got.dtype == torch.int32 and got.shape == (1,)
+    assert int(got) % 2**32 == want
+    with pytest.raises(ValueError):
+        TS.l2_read_probe(torch.from_numpy(a).float(), passes=passes)
+    with pytest.raises(ValueError):
+        TS.l2_read_probe(torch.from_numpy(a[:-1]), passes=passes)
+    with pytest.raises(ValueError):
+        TS.l2_read_probe(torch.from_numpy(a), passes=0)
+    with pytest.raises(ValueError):
+        TS.l2_read_probe(torch.from_numpy(a), passes=passes, unroll=6)
