@@ -151,7 +151,34 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     at a time, sweeps saved, host waits a request, the device's busy
     share and its kernels are printed, and bench_serve's t=64 is put to
     admission;
-13. one JSON line listing the kernels, then the card's name and power
+13. the distributed stencil on one card: ``engine.run_distributed(u,
+    policy="auto", iters=1003, t=8)`` on the paper's grid over a
+    ``ShardMesh`` of four shards on the card, ``(4,)`` and ``(2, 2)``, in
+    bf16 and f32, overlap off and on. First, on each mesh, K1 (masked)
+    and K2 are held against their plain versions bit for bit at every
+    shape and mask this path gives them, the masks the executor's own:
+    each shard position's extended block with its pin mask and its four
+    rind strips with theirs, the raw shard with the interior's all-zero
+    mask; K2 at the remainder round's extended block, raw shard and
+    strips. The default ``overlap=None`` must resolve to the serial round
+    (the shards share one card: no link to hide), and the default call
+    must launch and agree as the serial one. Each run's
+    schedule must be 125 masked temporal rounds of t=8 plus one 3-sweep
+    rowchunk round, its launches (counters zeroed just before) 125 K1 and
+    3 K2 a shard serially, all on the jacobi5 kernels (with overlap: an
+    interior and four rind strips a round, so five times as many), and
+    its result ``torch.equal`` to the single-device ``engine.run(u,
+    policy="temporal", t=8, iters=1003)``. Wall time (the median of five
+    runs, and their range) and GPt/s of each run beside the
+    single-device solve's, and the modeled exchange bill (serial and
+    overlapped), are printed. Then the reference test's
+    matrix on the card (jacobi5, a row stencil, a diagonal-tap one x the
+    two meshes x reference, shifted, rowchunk, temporal x t 1, 3 x
+    overlap on, off), each bit for bit the single-device rowchunk solve;
+    then a traced run of the main path (bf16, ``(4,)``, overlap off and
+    on), bit for bit the untraced one, whose spans ``reconcile`` joins
+    against the bill;
+14. one JSON line listing the kernels, then the card's name and power
     limit, then the result line.
 
 It imports nothing of JAX and nothing of the ``repro`` package, and exits
@@ -1649,6 +1676,223 @@ def phase_solve_serve(smi: str, stats) -> None:
         print(f"  {ms:10.3f} ms {n:5d}x  {name[:100]}")
 
 
+DIST_MESHES = {"(4,)": ((4,), ("x",)), "(2, 2)": ((2, 2), ("x", "y"))}
+DIAG9 = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0),
+         (1, 1))
+# The specs of tests/test_dist_engine.py: face, row and diagonal taps.
+DIST_SPECS = {"jacobi5": jacobi_2d_5pt(),
+              "diff3": StencilSpec(offsets=((0, -1), (0, 0), (0, 1)),
+                                   weights=(0.25, 0.5, 0.25)),
+              "diag9": StencilSpec(offsets=DIAG9, weights=(0.125,) * 8)}
+
+
+def dist_kernels(spec: StencilSpec, dname: str, mname: str,
+                 shape: tuple) -> None:
+    """K1 masked and K2 against their plain versions at every shape and
+    mask the distributed main path gives them on the mesh ``shape``, the
+    masks taken from the executor itself. K1 at depth T: for each shard
+    position, its extended block with its pin mask (``_pin_mask``) and
+    the four rind strips with that mask's strips (``_rind_strips``,
+    contiguous), then the raw shard with the interior's all-zero mask.
+    K2 at the remainder round (depth ITERS % T): the extended block, the
+    raw shard and the strips that overlap runs it on. Each launch is
+    counted and ``torch.equal`` to the plain version."""
+    from repro_torch.dist.stencil import _pin_mask, _rind_strips
+    dtype = DTYPES[dname]
+    px, py = (shape + (1,))[:2]
+    hl, wl, r = NY // px, NX // py, spec.radius
+    g = torch.Generator(device="cuda").manual_seed(13)
+
+    def same(policy, u, what, **kw):
+        got, counts = counted(lambda: getattr(
+            engine, f"stencil_{policy}")(u, spec, **kw))
+        want = getattr(engine, f"stencil_{policy}_plain")(u, spec, **kw)
+        check(counts[policy] == 1 and torch.equal(got, want),
+              f"{policy} at {tuple(u.shape)} {dname} mesh {mname} ({what}): "
+              f"launches {counts}, max |err| "
+              f"{float((got.float() - want.float()).abs().max())}")
+
+    def rand(shp):
+        return torch.rand(shp, generator=g, device="cuda").to(dtype)
+
+    d = T * r
+    masks = [("raw shard", torch.zeros((hl, wl), dtype=torch.uint8,
+                                       device="cuda"))]
+    for ix in range(px):
+        for iy in range(py):
+            m = _pin_mask(hl, wl, d, ix, iy, px, py, "cuda")
+            masks.append((f"shard ({ix}, {iy})", m))
+            masks += [(f"shard ({ix}, {iy}) strip {i}", m[rs, cs].contiguous())
+                      for i, (rs, cs) in enumerate(_rind_strips(hl, wl, d))]
+    for what, m in masks:
+        same("temporal", rand(m.shape), what, t=T, mask=m)
+    k1_shapes = sorted({tuple(m.shape) for _, m in masks})
+    dr = (ITERS % T) * r
+    ext = torch.empty((hl + 2 * dr, wl + 2 * dr), dtype=torch.uint8)
+    k2_shapes = sorted({tuple(ext.shape), (hl, wl)}
+                       | {tuple(ext[rs, cs].shape)
+                          for rs, cs in _rind_strips(hl, wl, dr)})
+    for shp in k2_shapes:
+        same("rowchunk", rand(shp), "remainder")
+    print(f"[{dname}] mesh {mname}: K1 masked on {len(masks)} (shape, mask) "
+          f"cases, the executor's pin masks of all {px * py} shard "
+          f"positions, their strips and the interior's, at {k1_shapes}; K2 "
+          f"at the remainder's {k2_shapes}: each launched once, bit for "
+          f"bit its plain version")
+
+
+def timed_wall(fn, reps: int = 5):
+    """Host seconds of synchronized ``fn()`` calls after a warm one, each
+    with the launch counters zeroed just before it (every call must
+    launch the same); returns (result, median seconds, (min, max),
+    counts, K1 kernels, K2 kernels). The host clock of a host-bound
+    path spreads from call to call, hence the median and the range."""
+    fn()
+    torch.cuda.synchronize()
+    walls, seen = [], set()
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out, counts = counted(fn)
+        walls.append(time.perf_counter() - t0)
+        k1, k2 = dict(engine.TEMPORAL_VARIANTS), dict(engine.ROWCHUNK_VARIANTS)
+        seen.add(json.dumps([counts, k1, k2], sort_keys=True))
+    check(len(seen) == 1, f"calls launched differently: {seen}")
+    walls.sort()
+    return (out, walls[reps // 2], (walls[0], walls[-1]), counts, k1, k2)
+
+
+def phase_dist(smi: str, stats) -> None:
+    from repro_torch.dist import ShardMesh
+    from repro_torch.obs.compare import reconcile
+    print(f"== phase 13: the distributed stencil on one card, "
+          f"run_distributed(policy='auto', iters={ITERS}, t={T}) at "
+          f"{NY}x{NX} over four shards on the card ==")
+    spec = jacobi_2d_5pt()
+    jacobi = {"jacobi5": 0, "laplace9": 0, "radius2": 0, "general": 0}
+    runs, solos, paths = {}, {}, {}
+    for dname, dtype in DTYPES.items():
+        u0 = make_laplace_problem(NY, NX, dtype=dtype)
+        solo, solo_wall, spread, _, _, _ = timed_wall(
+            lambda: engine.run(u0, policy="temporal", iters=ITERS, t=T))
+        solos[dname] = NY * NX * ITERS / solo_wall / 1e9
+        print(f"[{dname}] single device engine.run(temporal, t={T}): "
+              f"wall={solo_wall:.6f}s (median of 5, {spread[0]:.6f}-"
+              f"{spread[1]:.6f}) GPt/s={solos[dname]:.3f}")
+        for mname, (shape, axes) in DIST_MESHES.items():
+            dist_kernels(spec, dname, mname, shape)
+            mesh = ShardMesh(shape, axes)
+            # The default overlap=None: four shards on one card, no link
+            # to hide, so the serial round.
+            sched, shard, _ = engine.plan_distributed(
+                u0.shape, dtype, spec, mesh=mesh, policy="auto",
+                iters=ITERS, t=T)
+            check((sched.policy, sched.t, sched.fused_blocks,
+                   sched.remainder, sched.remainder_policy, sched.exchanges,
+                   sched.overlap)
+                  == ("temporal", T, 125, 3, "rowchunk", 126, False),
+                  f"{mname} schedule {sched}")
+            bill = engine.price_exchange(sched, shard_shape=shard,
+                                         dtype=dtype, spec=spec,
+                                         mesh_shape=shape)
+            print(f"[{dname}] mesh {mname}: schedule {sched.describe()}; "
+                  f"extended shard {shard}; modeled bill "
+                  f"({engine.detect().name}): "
+                  f"{bill.describe()}")
+            for overlap in (False, True):
+                out, wall, spread, counts, k1, k2 = timed_wall(
+                    lambda: engine.run_distributed(
+                        u0, spec, mesh=mesh, policy="auto", iters=ITERS,
+                        t=T, overlap=overlap))
+                per_round = 5 if overlap else 1
+                want = {"shifted": 0, "dbuf": 0,
+                        "temporal": 125 * 4 * per_round,
+                        "rowchunk": 3 * 4 * (5 if overlap else 1)}
+                check(counts == want,
+                      f"{mname} overlap={overlap} launches {counts} != {want}")
+                check(k1 == dict(jacobi, jacobi5=want["temporal"])
+                      and k2 == dict(jacobi, jacobi5=want["rowchunk"]),
+                      f"{mname} overlap={overlap}: K1 {k1}, K2 {k2} not "
+                      f"all jacobi5")
+                check(torch.equal(out, solo),
+                      f"{mname} {dname} overlap={overlap}: != single-device "
+                      f"engine.run, max |err| "
+                      f"{float((out.float() - solo.float()).abs().max())}")
+                gpts = NY * NX * ITERS / wall / 1e9
+                runs[(dname, mname, overlap)] = {
+                    "wall_s": wall, "wall_range_s": spread, "gpts": gpts,
+                    "single_gpts": solos[dname],
+                    "model_serial_s": bill.serial_s,
+                    "model_overlapped_s": bill.overlapped_s,
+                    "k1": counts["temporal"], "k2": counts["rowchunk"]}
+                print(f"[{dname}] mesh {mname} overlap={overlap}: == "
+                      f"single device bit for bit; launches K1 "
+                      f"{counts['temporal']} K2 {counts['rowchunk']}; "
+                      f"wall={wall:.6f}s (median of 5, {spread[0]:.6f}-"
+                      f"{spread[1]:.6f}) GPt/s={gpts:.3f} (single device "
+                      f"{solos[dname]:.3f}); modeled serial "
+                      f"{bill.serial_s * 1e3:.6f} ms, overlapped "
+                      f"{bill.overlapped_s * 1e3:.6f} ms; on {smi}")
+            # The main path as a user calls it (overlap left to its
+            # default), counters zeroed just before and read just after.
+            out, counts = counted(lambda: engine.run_distributed(
+                u0, spec, mesh=mesh, policy="auto", iters=ITERS, t=T))
+            want = {"shifted": 0, "dbuf": 0, "temporal": 500, "rowchunk": 12}
+            check(counts == want and torch.equal(out, solo),
+                  f"{mname} {dname} default overlap: launches {counts} != "
+                  f"{want} or != single device")
+            paths[(dname, mname)] = counts
+            print(f"[{dname}] mesh {mname} run_distributed(u0, policy='auto',"
+                  f" iters={ITERS}, t={T}) (overlap=None resolves to "
+                  f"{sched.overlap}): == single device bit for bit; launches "
+                  f"K1 {counts['temporal']} K2 {counts['rowchunk']}")
+    for policy in ("temporal", "rowchunk"):
+        stats[policy]["paths"]["run_distributed(auto, iters=1003, t=8, "
+                               "(4,))"] = paths[("bfloat16", "(4,)")][policy]
+    stats["temporal"]["run_distributed"] = {
+        f"{d} {m} overlap={'on' if o else 'off'}": v
+        for (d, m, o), v in runs.items()}
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    u = make_laplace_problem(32, 64)
+    u[...] = torch.rand(u.shape, generator=g, device="cuda")
+    n = 0
+    for sname, dspec in DIST_SPECS.items():
+        want = engine.run(u, dspec, policy="rowchunk", iters=6)
+        for mname, (shape, axes) in DIST_MESHES.items():
+            mesh = ShardMesh(shape, axes)
+            for policy in ("reference", "shifted", "rowchunk", "temporal"):
+                for t in (1, 3):
+                    for overlap in (True, False):
+                        got = engine.run_distributed(
+                            u, dspec, mesh=mesh, policy=policy, iters=6,
+                            t=t, overlap=overlap)
+                        check(torch.equal(got, want),
+                              f"matrix {sname} {mname} {policy} t={t} "
+                              f"overlap={overlap} != single device")
+                        n += 1
+    print(f"the reference test's matrix on the card: {n} runs at 32x64 "
+          f"(random ring), each bit for bit the single-device rowchunk "
+          f"solve")
+
+    u0 = make_laplace_problem(NY, NX, dtype=torch.bfloat16)
+    plain = engine.run_distributed(u0, spec, mesh=ShardMesh((4,), ("x",)),
+                                   policy="auto", iters=ITERS, t=T)
+    for overlap in (False, True):
+        tracer = obs_trace.Tracer()
+        with obs_trace.use_tracer(tracer):
+            traced = engine.run_distributed(
+                u0, spec, mesh=ShardMesh((4,), ("x",)), policy="auto",
+                iters=ITERS, t=T, overlap=overlap)
+        check(torch.equal(traced, plain),
+              f"traced run (overlap={overlap}) != untraced")
+        rounds = sum(e.name == "dist.round" for e in tracer.events)
+        check(rounds == 126, f"{rounds} dist.round spans, want 126")
+        rep = reconcile(tracer)
+        print(f"traced main path, bf16, (4,), overlap={overlap}: 126 "
+              f"rounds, bit for bit the untraced run; on {smi}")
+        print(rep.describe())
+
+
 def main() -> None:
     smi, peaks = card()
     print(f"== phase 1: card: {smi} ==")
@@ -1679,6 +1923,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_solve_serve(smi, stats)
+    phase_dist(smi, stats)
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
         s = stats[policy]
@@ -1690,7 +1935,8 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"],
             "dtype": "bfloat16", **s["bfloat16"],
             "float32": s["float32"],
-            **{k: s[k] for k in ("cases", "solve_serve") if k in s}})
+            **{k: s[k] for k in ("cases", "solve_serve", "run_distributed")
+               if k in s}})
     kid, replaces = FLASH
     s = stats["flash"]
     for dname, kernel in (("bfloat16", "wgmma (tensor cores)"),

@@ -19,7 +19,8 @@ Layers: ``device`` (hardware models), ``plan`` (tile/window/temporal-depth
 planning, cached per device), ``schedule`` (how ``iters`` sweeps become
 fused blocks), ``policies`` (the CUDA kernels and their plain versions),
 ``dispatch`` (registry + run/step), ``tune`` (the measured autotuner
-behind ``policy="tuned"``).
+behind ``policy="tuned"``), ``distributed`` (``run_distributed`` over a
+:class:`~repro_torch.dist.mesh.ShardMesh`).
 """
 from repro_torch.engine.device import (  # noqa: F401
     DeviceModel,
@@ -58,9 +59,11 @@ from repro_torch.engine.policies import (  # noqa: F401
 )
 from repro_torch.engine.schedule import (  # noqa: F401
     DEFAULT_REMAINDER_POLICY,
+    ExchangeBill,
     SweepSchedule,
     build_schedule,
     effective_depth,
+    price_exchange,
 )
 from repro_torch.engine.dispatch import (  # noqa: F401
     Policy,
@@ -74,5 +77,10 @@ from repro_torch.engine.dispatch import (  # noqa: F401
     run_batched,
     run_converged,
     step,
+)
+from repro_torch.engine.distributed import (  # noqa: F401,E402
+    local_sweep_for,
+    plan_distributed,
+    run_distributed,
 )
 from repro_torch.engine import tune  # noqa: F401,E402

@@ -66,6 +66,14 @@ class DeviceModel:
     # exchange is billed at ``inter_node_bw`` instead.
     mesh_direct_links: bool = True
 
+    @property
+    def halo_link_bw(self) -> float:
+        """Bytes/s one mesh halo exchange rides: the direct interconnect,
+        or the host-mediated inter-node pipe when neighbour devices cannot
+        read each other's memory (``mesh_direct_links=False``)."""
+        return self.interconnect_bw if self.mesh_direct_links \
+            else self.inter_node_bw
+
 
 _REGISTRY: dict[str, DeviceModel] = {}
 

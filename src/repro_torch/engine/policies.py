@@ -294,8 +294,12 @@ def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
     b, h, w = _batch_hw(u)
     mask_ptr = None
     if mask is not None:
-        mask = (mask.to(u.device) != 0).to(torch.uint8).expand(u.shape)
-        mask = mask.contiguous()
+        # The kernel reads one byte a cell (nonzero = pinned) over the
+        # whole grid; a mask already in that form is passed as it is.
+        if not (mask.dtype == torch.uint8 and mask.shape == u.shape
+                and mask.device == u.device and mask.is_contiguous()):
+            mask = (mask.to(u.device) != 0).to(torch.uint8).expand(u.shape)
+            mask = mask.contiguous()
         mask_ptr = mask.data_ptr()
     n, dy, dx, wts = _tap_args(plan.spec)
     variant = temporal_variant(plan.spec)
@@ -385,7 +389,9 @@ def stencil_temporal(u: torch.Tensor, spec: StencilSpec, *,
     """Advance the grid by exactly ``t`` sweeps in one round-trip (K1).
 
     ``mask`` (optional, ``(H, W)`` or the grid's shape, nonzero = pinned)
-    adds cells to the pin set, which is always the grid's r-deep ring.
+    adds cells to the pin set, which is always the grid's r-deep ring. A
+    contiguous ``uint8`` mask of the grid's shape on its device goes to
+    the kernel as it is; any other is converted once a launch.
     Unmasked cells within ``t·r`` of an unpinned edge are computed from
     neighbours that do not evolve (the ring); callers that pin less than
     the ring crop them.

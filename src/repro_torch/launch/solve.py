@@ -14,12 +14,23 @@ prints its bucket, launches and realized iterations; ``--trace PATH``
 writes the run's spans and counters as Chrome-trace JSON, which
 ``python -m repro_torch.obs summarize|validate PATH`` reads.
 
+``--devices N`` decomposes the grid into a row mesh of ``N`` shards on
+``--device`` (:class:`repro_torch.dist.ShardMesh`, every shard on the one
+device) and runs ``engine.run_distributed`` with ``--depth`` (or ``--t``)
+sweeps per ``t·r``-deep halo exchange and ``--overlap auto|on|off``; it
+prints the schedule, the extended shard and the modeled exchange bill.
+With ``--trace`` the distributed run goes through its span-per-phase
+executor, whose spans ``python -m repro_torch.obs summarize PATH``
+reconciles against the bill.
+
 ``--check`` compares against the port's own ``reference`` policy (the
 plain oracle) at the realized iteration count: max |err| < 1e-4 in f32,
-5e-2 in bf16. A bf16 solve may instead be within 5e-2 of the reference
-run in f32 from the same start: the reference rounds to bf16 after every
-sweep and drifts from the f32 solve over many sweeps, while the fused
-temporal policy rounds once per block and stays near the f32 solve.
+5e-2 in bf16; a distributed solve must also equal the single-device
+``engine.run`` under its resolved policy and ``t`` bit for bit. A bf16
+solve may instead be within 5e-2 of the reference run in f32 from the
+same start: the reference rounds to bf16 after every sweep and drifts
+from the f32 solve over many sweeps, while the fused temporal policy
+rounds once per block and stays near the f32 solve.
 """
 from __future__ import annotations
 
@@ -63,6 +74,16 @@ def main(argv=None) -> None:
                     help="route the solve through SolveServer as one "
                          "request: admission, bucketing, superblocks of "
                          "batched launches, eviction on --tol")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shards in a row mesh on --device (distributed "
+                         "solve when > 1)")
+    ap.add_argument("--depth", type=int, default=1,
+                    help="halo exchange depth in sweeps (distributed; --t "
+                         "overrides it)")
+    ap.add_argument("--overlap", default="auto", choices=["auto", "on", "off"],
+                    help="hide each halo exchange behind the shards' "
+                         "interior compute (distributed; bit-exact either "
+                         "way); auto lets the schedule price it")
     ap.add_argument("--trace", default=None, metavar="PATH",
                     help="write the run's spans and counters as Chrome-trace "
                          "JSON (inspect with 'python -m repro_torch.obs "
@@ -111,6 +132,9 @@ def _dispatch(args) -> None:
         print(f"card: {torch.cuda.get_device_name(dev)}")
     if args.serve:
         _serve(args, u0)
+        return
+    if args.devices > 1:
+        _distributed(args, u0)
         return
 
     def solve():
@@ -178,6 +202,57 @@ def _serve(args, u0: torch.Tensor) -> None:
           f"mean={float(inner.mean()):.6f}  max={float(inner.max()):.6f}")
     if args.check:
         _check(args, u0, inner.to(u0.device), req.iters_done)
+
+
+def _distributed(args, u0: torch.Tensor) -> None:
+    """The solve over a row mesh of ``--devices`` shards on one device."""
+    from repro_torch import engine
+    from repro_torch.core.stencil import jacobi_2d_5pt
+    from repro_torch.dist import ShardMesh
+
+    mesh = ShardMesh((args.devices,), ("x",), [u0.device] * args.devices)
+    t = args.t if args.t is not None else args.depth
+    overlap = {"auto": None, "on": True, "off": False}[args.overlap]
+    spec = jacobi_2d_5pt()
+    sched, shard_shape, _ = engine.plan_distributed(
+        u0.shape, u0.dtype, spec, mesh=mesh, policy=args.kernel,
+        iters=args.iters, t=t, overlap=overlap)
+    print(f"schedule: {sched.describe()}  shard={shard_shape} "
+          f"mesh={args.devices}x1 on {u0.device}")
+    bill = engine.price_exchange(sched, shard_shape=shard_shape,
+                                 dtype=u0.dtype, spec=spec,
+                                 mesh_shape=(args.devices,))
+    print(f"exchange bill: {bill.describe()}")
+
+    def solve():
+        return engine.run_distributed(u0, spec, mesh=mesh, policy=args.kernel,
+                                      iters=args.iters, t=t, overlap=overlap)
+
+    if u0.device.type == "cuda":
+        with use_tracer(None):  # builds the kernels, warms the allocator
+            solve()
+        _sync(u0.device)
+    t0 = time.perf_counter()
+    out = solve()
+    _sync(u0.device)
+    dt = time.perf_counter() - t0
+    inner = out[1:-1, 1:-1].to(torch.float32)
+    res = float(engine.residual_for(spec)(out))
+    print(f"kernel={args.kernel} devices={args.devices} device={u0.device} "
+          f"grid={args.ny}x{args.nx} dtype={args.dtype} iters={args.iters}")
+    gpts = args.ny * args.nx * args.iters / dt / 1e9
+    print(f"wall={dt:.6f}s  GPt/s={gpts:.3f}  residual={res:.3e}  "
+          f"mean={float(inner.mean()):.6f}  max={float(inner.max()):.6f}")
+    if args.check:
+        solo = engine.run(u0, spec, policy=sched.policy, iters=args.iters,
+                          t=sched.t)
+        if not torch.equal(out, solo):
+            raise SystemExit(f"CHECK FAILED: the distributed solve != "
+                             f"engine.run(policy={sched.policy!r}, "
+                             f"t={sched.t})")
+        print(f"distributed == engine.run(policy={sched.policy!r}, "
+              f"t={sched.t}) bit for bit")
+        _check(args, u0, inner, args.iters)
 
 
 def _check(args, u0: torch.Tensor, inner: torch.Tensor,

@@ -9,11 +9,13 @@ warning-severity ``OBS-DRIFT`` finding; components with a zero or absent
 model, and traces with nothing to reconcile, get ``OBS-UNMODELED`` info
 findings, so "the trace proved nothing" is visible rather than silent.
 
-In the single-device port no span attaches ``model_s`` yet: the priced
-bills come from the distributed executor and the simulator (ROADMAP
-Queue 1, C1 and E1). A served or solved trace therefore reconciles to
-``OBS-UNMODELED``, as the reference's does on such a trace. The text of
-every report is the reference's.
+The distributed executor's traced rounds attach their
+:class:`~repro_torch.engine.schedule.ExchangeBill` to every
+``exchange``/``compute``/``interior``/``rind`` span
+(:mod:`repro_torch.dist.stencil`); the simulator's bills are not ported
+(ROADMAP Queue 1, E1). A served or single-device trace carries no model
+and reconciles to ``OBS-UNMODELED``, as the reference's does on such a
+trace. The text of every report is the reference's.
 
 The :mod:`repro_torch.analysis` import is deferred into :func:`reconcile`,
 so ``repro_torch.obs`` stays importable from the engine's lowest layers.

@@ -952,3 +952,40 @@ def test_solve_server_lone_request_on_the_card(cuda):
     assert torch.equal(req.result, TE.run(req.grid, policy="temporal",
                                           iters=req.iters_done,
                                           t=8).cpu())
+
+
+def test_temporal_takes_a_prepared_uint8_mask_as_it_is(cuda):
+    """A contiguous uint8 mask of the grid's shape (the distributed
+    executor's pin mask) runs the same as any other form of it."""
+    spec = TS.jacobi_2d_5pt()
+    u = _grid((70, 300), torch.float32, cuda, seed=2)
+    mask = torch.zeros(u.shape, dtype=torch.uint8, device=cuda)
+    mask[:8] = 1
+    mask[:, -3:] = 7
+    got = TE.stencil_temporal(u, spec, t=4, mask=mask)
+    assert torch.equal(got, TE.stencil_temporal(u, spec, t=4,
+                                                mask=mask.bool()))
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=4,
+                                                      mask=mask))
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("mesh", [((4,), ("x",)), ((2, 2), ("x", "y"))])
+@pytest.mark.parametrize("policy", ["reference", "shifted", "rowchunk",
+                                    "dbuf", "temporal"])
+@pytest.mark.parametrize("spec_name", list(SPECS))
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_run_distributed_on_the_card_bitwise(cuda, dtype, spec_name, policy,
+                                             mesh, overlap):
+    """Four shards on the card (the interior/rind split on a side
+    stream): bit for bit the single-device run of the same policy, over
+    two rounds of t=3 and a one-sweep remainder round."""
+    from repro_torch.dist import ShardMesh
+    spec = SPECS[spec_name]
+    r = spec.radius
+    u = _grid((64 + 2 * r, 128 + 2 * r), dtype, cuda, seed=5)
+    got = TE.run_distributed(u, spec, mesh=ShardMesh(*mesh), policy=policy,
+                             iters=7, t=3, overlap=overlap)
+    want = TE.run(u, spec, policy=policy, iters=7, t=3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

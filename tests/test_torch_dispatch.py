@@ -203,9 +203,18 @@ def test_unported_paths_raise():
                               torch_device="cpu")
     with pytest.raises(NotImplementedError, match="E1"):
         check_schedule(sched, shape=tu.shape, program=object())
-    with pytest.raises(NotImplementedError, match="distributed"):
-        TE.build_schedule(4, spec=ts, shape=tu.shape, dtype=tu.dtype,
-                          exchange_cadence=True)
+    # The distributed executor's schedule is ported: t groups the sweeps
+    # a halo exchange, as the reference's does.
+    js = JS.jacobi_2d_5pt()
+    got = TE.build_schedule(4, spec=ts, shape=tu.shape, dtype=tu.dtype,
+                            policy="rowchunk", t=2, device="cpu_ref",
+                            mesh_shape=(2,), exchange_cadence=True,
+                            torch_device="cpu")
+    want = JE.build_schedule(4, spec=js, shape=tu.shape, dtype=jnp.float32,
+                             policy="rowchunk", t=2, device="cpu_ref",
+                             mesh_shape=(2,), exchange_cadence=True)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.t, got.fused_blocks, got.exchanges) == (2, 2, 2)
 
 
 def test_spans_keep_the_reference_names():

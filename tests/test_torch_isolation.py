@@ -33,8 +33,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout
     assert {"repro_torch.engine.dispatch", "repro_torch.kernels.stream",
-            "repro_torch.kernels.components",
-            "repro_torch.launch.access"} <= set(MODULES)
+            "repro_torch.kernels.components", "repro_torch.launch.access",
+            "repro_torch.core.decomp", "repro_torch.core.halo",
+            "repro_torch.dist", "repro_torch.dist.mesh",
+            "repro_torch.dist.stencil",
+            "repro_torch.engine.distributed"} <= set(MODULES)
 
 
 def test_source_has_no_jax_or_repro_imports():
