@@ -24,7 +24,12 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    parent's kernel) and two bounds: the f32 operations at the published
    peak, and at half of it (each multiply and add issued alone, as bit for
    bit requires). K4 is timed alone on pre-made tap views and as the whole
-   policy call (the views' copies too), each beside its own traffic bound;
+   policy call (the views' copies too), each beside its own traffic bound.
+   Then the same kernels on inputs of magnitude up to 16x the smallest
+   normal f32 (subnormal inputs, products and partial sums), bit for bit
+   against their plain versions, which flush subnormals as XLA does; the
+   built library's SASS must show every f32 multiply and add as ``.FTZ``
+   (``csrc/stencil.cu`` is built with ``-ftz=true``);
 4. the main path, ``engine.run(make_laplace_problem(1024, 9216),
    policy="auto", iters=1003)`` in bf16 and f32: the schedule must be 125
    temporal blocks of t=8 plus 3 rowchunk sweeps, the launch counters must
@@ -178,7 +183,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     then a traced run of the main path (bf16, ``(4,)``, overlap off and
     on), bit for bit the untraced one, whose spans ``reconcile`` joins
     against the bill;
-14. one JSON line listing the kernels, then the card's name and power
+14. the Grayskull e150 model on the card (``repro_torch.backends``): the
+    backends smoke; at the paper's grid the f32 row-major and bf16
+    tilized programs of every policy refused by the model's 1.5 MiB
+    (each diagnostic printed: a 9218-cell row is 289 tiles of 32x32);
+    ``backends.simulate(device="grayskull_e150", iters=11)`` of bf16
+    row-major rowchunk (bm 16) and temporal (bm 4, t 4) at the paper's
+    grid, and of every lowerable policy in f32 row-major and bf16
+    tilized at 1024 x 1024 (bm 32, t 8: one fused block and a
+    remainder), each grid ``torch.equal`` to the card's ``engine.run``
+    of the same policy, iters, t and bm, whose K1–K4 launches are
+    counted; per case the MODELED e150 GPt/s and energy beside the
+    card's measured GPt/s for the same solve and the simulator's wall
+    time; the four-card what-if (``mesh_shape=(4,)``, overlap off and
+    on) of each temporal case, its grid equal to the single chip's; the
+    ``sim.simulate`` span and counter tracks; and ``run_sweep(full=True)``,
+    720 cells, the 540 off the GPU all verified as the reference's;
+15. one JSON line listing the kernels, then the card's name and power
     limit, then the result line.
 
 It imports nothing of JAX and nothing of the ``repro`` package, and exits
@@ -206,8 +227,11 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 
-from repro_torch import configs, engine  # noqa: E402
-from repro_torch.core.stencil import (StencilSpec, apply_stencil,  # noqa: E402
+from repro_torch import backends, configs, engine  # noqa: E402
+from repro_torch.analysis.sweep import run_sweep  # noqa: E402
+from repro_torch.backends import report as sim_report  # noqa: E402
+from repro_torch.core.stencil import (F32_TINY, StencilSpec,  # noqa: E402
+                                      apply_stencil,
                                       jacobi_2d_5pt, laplace_2d_9pt,
                                       make_laplace_problem)
 from repro_torch.kernels import build  # noqa: E402
@@ -542,6 +566,239 @@ def time_k4(spec, dname, u, out, policy_ms, p_ms, lib_ms, policy_b_ms,
                 "bound_by": b_by, "library_ms": None,
                 "policy_ms": policy_ms, "policy_bound_ms": policy_b_ms,
                 "policy_library_ms": lib_ms}
+
+
+def tap_sum_unflushed(u: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
+    """One sweep's interior as f32 sums of products that keep subnormals
+    (what the kernels computed before they were built with -ftz=true)."""
+    r = spec.radius
+    c = u.float()
+    h, w = c.shape
+    acc = None
+    for (dy, dx), wt in zip(spec.offsets, spec.weights):
+        term = c[r + dy:h - r + dy, r + dx:w - r + dx] * wt
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def subnormals(x: torch.Tensor) -> int:
+    x = x.float()
+    return int(((x != 0) & (x.abs() < F32_TINY)).sum())
+
+
+def ftz_sass() -> dict[str, int]:
+    """f32 multiplies and adds in the built stencil library's SASS, by
+    whether they flush (``.FTZ``)."""
+    lib = build._target("stencil", build.CSRC)
+    tool = next(c for c in ("/usr/local/cuda/bin/cuobjdump", "cuobjdump")
+                if c == "cuobjdump" or os.path.exists(c))
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {"FMUL.FTZ": 0, "FADD.FTZ": 0, "FMUL": 0, "FADD": 0,
+              "FFMA": 0}
+    for line in sass.splitlines():
+        for op in ("FMUL", "FADD", "FFMA"):
+            if f" {op}" in line:
+                ftz = ".FTZ" in line.split(op, 1)[1].split()[0]
+                counts[op + (".FTZ" if ftz and op != "FFMA" else "")] += 1
+    return counts
+
+
+def phase_subnormals() -> None:
+    """K1–K4 on inputs in the subnormal range, bit for bit against their
+    plain versions, which flush as XLA does: every multiply and add reads
+    subnormal operands as zero and flushes a subnormal result."""
+    print(f"== phase 3 (subnormals): K1-K4 vs their flushed plain versions "
+          f"on inputs up to 16x the smallest normal f32, {NY + 2}x{NX + 2} "
+          f"==")
+    sass = ftz_sass()
+    print(f"stencil library SASS: {sass}")
+    check(sass["FMUL.FTZ"] > 0 and sass["FADD.FTZ"] > 0
+          and sass["FMUL"] == 0 and sass["FADD"] == 0,
+          f"every f32 multiply and add of csrc/stencil.cu must flush: "
+          f"{sass}")
+    for spec_name, spec in SPECS.items():
+        r = spec.radius
+        for dname, dtype in DTYPES.items():
+            g = torch.Generator(device="cuda").manual_seed(11)
+            shape = (NY + 2 * r, NX + 2 * r)
+            mag = torch.rand(shape, generator=g, device="cuda") * 16
+            sign = torch.rand(shape, generator=g, device="cuda") < 0.5
+            u = (torch.where(sign, -mag, mag) * F32_TINY).to(dtype)
+            plain1 = engine.stencil_rowchunk_plain(u, spec)
+            kept = tap_sum_unflushed(u, spec).to(dtype)
+            moved = int((kept != plain1[r:-r, r:-r]).sum())
+            check(moved > 0, f"{spec_name} {dname}: the flush changes no "
+                             f"cell; the input does not reach it")
+            mask = torch.rand(shape, generator=g, device="cuda") < 0.01
+            cases = [(p, {}) for p in ("rowchunk", "dbuf", "shifted")]
+            cases += [("temporal", {"t": T}), ("temporal", {"t": T,
+                                                           "mask": mask})]
+            for policy, kw in cases:
+                got = getattr(engine, f"stencil_{policy}")(u, spec, **kw)
+                want = getattr(engine, f"stencil_{policy}_plain")(u, spec,
+                                                                  **kw)
+                torch.cuda.synchronize()
+                label = policy + (" masked" if "mask" in kw else "")
+                check(torch.equal(got, want),
+                      f"subnormal input: {label} {spec_name} {dname} != its "
+                      f"flushed plain version")
+                inner = got[..., r:-r, r:-r]
+                if policy != "temporal":
+                    check(subnormals(inner) == 0,
+                          f"{label} {spec_name} {dname} kept a subnormal")
+            print(f"{spec_name:9s} {dname:8s} K1 (masked and not), K2, K3, "
+                  f"K4 bitwise; input subnormal cells {subnormals(u)}, "
+                  f"cells the flush moves in one sweep {moved}")
+
+
+# Phase 14: the Grayskull e150 model. (label, interior rows, interior
+# cols, dtype, tilized, policy -> (bm, t)): the paper's grid where the
+# model hosts a program (bf16 row-major: one 9218-cell row of 32x32 tiles
+# is 289 tiles, 0.59 MB in bf16, 1.18 MB in f32, of a core's 1.5 MiB), and
+# every policy in f32 row-major and bf16 tilized at the paper grid's
+# height and the widest interior whose programs all fit (1024).
+E150 = "grayskull_e150"
+SIM_ITERS = 11
+SIM_CASES = (
+    ("paper grid", NY, NX, "bfloat16", False,
+     {"rowchunk": (16, None), "temporal": (4, 4)}),
+    ("1024 wide", NY, 1024, "float32", False,
+     {p: (32, 8) for p in ("shifted", "rowchunk", "dbuf", "temporal")}),
+    ("1024 wide", NY, 1024, "bfloat16", True,
+     {p: (32, 8) for p in ("shifted", "rowchunk", "dbuf", "temporal")}),
+)
+
+
+def sim_refusals() -> None:
+    """At the paper's grid no policy lowers in f32 row-major or bf16
+    tilized on the e150 model: each refusal prints its diagnostic."""
+    for dname, tilized in (("float32", False), ("bfloat16", True)):
+        for policy in backends.lowerable_policies():
+            try:
+                backends.lower((NY + 2, NX + 2), dname, jacobi_2d_5pt(),
+                               policy, bm=8, t=4, device=E150,
+                               tilized=tilized)
+            except (backends.LoweringError, engine.PlanError) as e:
+                why = next(line for line in str(e).splitlines()
+                           if "needs" in line).strip()
+                print(f"[{dname} {'tilized' if tilized else 'row-major'}] "
+                      f"{policy}: refused: {why}")
+                continue
+            raise SystemExit(f"chip_smoke FAILED: {policy} {dname} lowered "
+                             f"at the paper grid on {E150}")
+
+
+def phase_grayskull(smi: str, stats) -> None:
+    print(f"== phase 14: the Grayskull e150 model on the card: "
+          f"backends.simulate(device={E150!r}) of every lowerable policy, "
+          f"each grid bit for bit the card's engine.run ==")
+    check(backends.sim._smoke(E150, "cuda") == 0, "backends smoke")
+    sim_refusals()
+    spec = jacobi_2d_5pt()
+    for label, ny, nx, dname, tilized, policies in SIM_CASES:
+        dtype = DTYPES[dname]
+        u0 = make_laplace_problem(ny, nx, dtype=dtype)
+        for policy, (bm, t) in policies.items():
+            sched = engine.build_schedule(SIM_ITERS, spec=spec,
+                                          shape=u0.shape, dtype=dtype,
+                                          policy=policy, t=t, device=E150)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tracer = obs_trace.Tracer()
+            with obs_trace.use_tracer(tracer):
+                res = backends.simulate(u0, spec, policy=policy,
+                                        iters=SIM_ITERS, t=t, bm=bm,
+                                        device=E150, tilized=tilized)
+            torch.cuda.synchronize()
+            sim_wall = time.perf_counter() - t0
+            check(res.programs[0].tilized == tilized,
+                  f"{policy} {dname}: tilized {res.programs[0].tilized}")
+            spans = [e for e in tracer.events if e.name == "sim.simulate"]
+            check(len(spans) == 1 and spans[0].attrs["model_s"]
+                  == res.model_time_s and {c.name for c in tracer.counters}
+                  == {"sim.core_busy_s", "sim.cb_occupancy"},
+                  f"{policy} {dname}: the sim.simulate span and counters")
+
+            def run(policy=policy, t=t, bm=bm):
+                return engine.run(u0, spec, policy=policy, iters=SIM_ITERS,
+                                  t=t, bm=bm)
+            out, counts = counted(run)
+            want = {"temporal": sched.fused_blocks} if policy == "temporal" \
+                else {policy: SIM_ITERS}
+            if sched.remainder:
+                want["rowchunk"] = sched.remainder
+            check(counts == {k: want.get(k, 0) for k in counts},
+                  f"{policy} {dname}: engine.run launched {counts}")
+            check(torch.equal(res.grid, out),
+                  f"{label} {policy} {dname}: the simulated grid != the "
+                  f"card's engine.run")
+            check(subnormals(out) == 0, "no subnormal cell at 11 sweeps")
+            s = stats[policy].setdefault("grayskull_sim", {
+                "launches": 0, "path": "phase 14: engine.run(policy, "
+                                       f"iters={SIM_ITERS}), the simulator's "
+                                       "twin"})
+            s["launches"] += sum(counts.values()) if policy != "temporal" \
+                else counts["temporal"]
+            if policy == "temporal":
+                stats["rowchunk"].setdefault("grayskull_sim", {
+                    "launches": 0, "path": "phase 14: the temporal "
+                                           "schedule's remainder"})
+                stats["rowchunk"]["grayskull_sim"]["launches"] += \
+                    counts["rowchunk"]
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t1)
+            wall = sorted(walls)[2]
+            summ = sim_report.summarize(res)
+            card_gpts = ny * nx * SIM_ITERS / wall / 1e9
+            print(f"[{label} {ny}x{nx} {dname} "
+                  f"{'tilized' if tilized else 'row-major'}] {policy} "
+                  f"bm={bm} t={t}: {sched.describe()}; bit for bit the "
+                  f"card's engine.run ({counts})")
+            print(f"    MODELED {E150}: GPt/s={summ['gpts']:.6f} "
+                  f"energy_J={summ['energy_j']:.6f} "
+                  f"model_s={summ['model_time_s']:.6e} "
+                  f"bytes/pt={summ['bytes_per_point']:.4f} "
+                  f"cores={summ['cores_used']}")
+            print(f"    measured on {smi}: engine.run wall={wall:.6f}s "
+                  f"GPt/s={card_gpts:.3f}; simulator wall on the card "
+                  f"{sim_wall:.3f}s (a Python block loop)")
+            if policy == "temporal":
+                mesh_whatif(u0, spec, policy, bm, t, tilized, res)
+    cells = run_sweep(full=True)
+    off = [c for c in cells if c.device != "gpu_sm90"]
+    counts = {o: sum(c.outcome == o for c in off)
+              for o in ("verified", "infeasible", "error")}
+    gpu = {o: sum(c.outcome == o for c in cells if c.device == "gpu_sm90")
+           for o in ("verified", "infeasible", "error")}
+    print(f"run_sweep(full=True): {len(cells)} cells; tpu_v5e, "
+          f"grayskull_e150, cpu_ref: {counts}; gpu_sm90: {gpu}")
+    check(len(cells) == 720 and counts == {"verified": 540, "infeasible": 0,
+                                           "error": 0},
+          "the sweep off the GPU must equal the reference's (540 verified)")
+    check(gpu == {"verified": 102, "infeasible": 78, "error": 0},
+          f"the gpu_sm90 cells must be the pinned ones: {gpu}")
+
+
+def mesh_whatif(u0, spec, policy, bm, t, tilized, single) -> None:
+    """The paper's four-card what-if: the same simulation over a (4,)
+    mesh, serial and overlapped bills; the grid must not move."""
+    for overlap in (False, True):
+        res = backends.simulate(u0, spec, policy=policy, iters=SIM_ITERS,
+                                t=t, bm=bm, device=E150, tilized=tilized,
+                                mesh_shape=(4,), overlap=overlap)
+        check(torch.equal(res.grid, single.grid),
+              "the mesh simulation's grid != the single-chip simulation's")
+        b = res.exchange_model
+        print(f"    MODELED {E150} mesh (4,) overlap={overlap}: "
+              f"model_s={res.model_time_s:.6e} (single chip "
+              f"{single.model_time_s:.6e}); bill: {b.describe()}")
+
 
 
 def plain_schedule(u: torch.Tensor, spec: StencilSpec, sched) -> torch.Tensor:
@@ -1393,7 +1650,9 @@ def phase_stream(peaks, stats, smi: str) -> None:
         for line in lines:
             print(line)
             name, us, _ = line.split(",")
-            check(name.startswith("paper_") or float(us) > 0,
+            # The paper's rows and the simulator's modeled rows carry no
+            # time; every measured row must.
+            check(name.startswith(("paper_", "sim_")) or float(us) > 0,
                   f"table {t} row {name} measured no time")
     for name, n in counts.items():
         check(n > 0, f"{name} was not launched by launch.access")
@@ -1906,6 +2165,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     stats: dict = {}
     phase_kernels(peaks, stats)
+    phase_subnormals()
     phase_main(smi, stats)
     phase_paths(stats)
     phase_flash(peaks, stats)
@@ -1924,6 +2184,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_solve_serve(smi, stats)
     phase_dist(smi, stats)
+    phase_grayskull(smi, stats)
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
         s = stats[policy]
@@ -1935,8 +2196,8 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"],
             "dtype": "bfloat16", **s["bfloat16"],
             "float32": s["float32"],
-            **{k: s[k] for k in ("cases", "solve_serve", "run_distributed")
-               if k in s}})
+            **{k: s[k] for k in ("cases", "solve_serve", "run_distributed",
+                                 "grayskull_sim") if k in s}})
     kid, replaces = FLASH
     s = stats["flash"]
     for dname, kernel in (("bfloat16", "wgmma (tensor cores)"),

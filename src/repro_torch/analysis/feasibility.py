@@ -7,17 +7,15 @@ decomposition, the overlap gate) into one pass over a resolved
 :class:`~repro_torch.analysis.diagnostics.Diagnostic` records with the
 reference's codes and text; :func:`check_bucket` gates a solve request
 into its serving bucket. Callers that must raise do so through
-``report.raise_if_errors(...)``.
-
-The reference can also cross-check a lowered Tensix program
-(``program=``); the port has no backends yet (ROADMAP Queue 1, E1), so a
-program raises ``NotImplementedError``.
+``report.raise_if_errors(...)``. A lowered Tensix program (``program=``)
+is cross-checked against the schedule and statically verified, as the
+reference does.
 """
 from __future__ import annotations
 
 from repro_torch.analysis.diagnostics import (Diagnostic, Report, error,
                                               warning)
-from repro_torch.engine.device import DeviceModel
+from repro_torch.engine.device import DeviceModel, get_device
 from repro_torch.engine.schedule import SweepSchedule, overlap_feasible
 
 
@@ -54,21 +52,17 @@ def check_schedule(sched: SweepSchedule, *, shape, dtype=None,
                    spec=None, device: "str | DeviceModel | None" = None,
                    mesh_shape: tuple | None = None,
                    program=None, masked: bool = False) -> Report:
-    """Statically check a schedule.
+    """Statically check a schedule (and optionally its lowered program).
 
     ``shape`` is the full ringed grid the schedule sweeps; ``mesh_shape``
     the decomposition a distributed execution would use (None or one
     shard = single device); ``masked`` whether a pin-mask stream will be
-    supplied (the distributed-shard form). ``dtype`` and ``device`` are
-    part of the reference's signature; no gate here reads them. Returns a
-    :class:`Report`, empty on the happy path.
+    supplied (the distributed-shard form); ``program`` a lowered
+    :class:`~repro_torch.backends.ir.TensixProgram` to cross-check and
+    verify. ``dtype`` is part of the reference's signature; no gate reads
+    it. Returns a :class:`Report`, empty on the happy path.
     """
-    del dtype, device  # no dtype- or device-specific gate without a program
-    if program is not None:
-        raise NotImplementedError(
-            "check_schedule(program=...) cross-checks a lowered Tensix "
-            "program, and repro_torch has no backends yet (ROADMAP Queue 1, "
-            "E1)")
+    del dtype  # part of the stable signature; no dtype-specific gate yet
     diags: list[Diagnostic] = []
     if spec is not None and spec.radius != sched.radius:
         diags.append(warning(
@@ -125,4 +119,30 @@ def check_schedule(sched: SweepSchedule, *, shape, dtype=None,
                 f"nothing hidden)",
                 hint="lower t, use fewer shards, or drop overlap"))
 
+    if program is not None:
+        if program.policy not in (sched.policy, sched.remainder_policy):
+            diags.append(warning(
+                "SCHED-PROG-MISMATCH", "program",
+                f"program lowers policy {program.policy!r} but the "
+                f"schedule resolved {sched.policy!r} (remainder "
+                f"{sched.remainder_policy!r})",
+                hint="lower the program from the same schedule that "
+                     "will execute"))
+        elif (program.policy == sched.policy and sched.fused
+                and program.plan.t != sched.t):
+            diags.append(warning(
+                "SCHED-PROG-MISMATCH", "program",
+                f"program fuses t={program.plan.t} sweeps per block but "
+                f"the schedule runs t={sched.t}",
+                hint="re-lower with the schedule's realized depth"))
+        if device is not None \
+                and get_device(device) != program.plan.device:
+            diags.append(warning(
+                "SCHED-PROG-MISMATCH", "program",
+                f"program planned for {program.plan.device.name} but "
+                f"checked against {get_device(device).name}",
+                hint="plan, lower and check against the same device "
+                     "model"))
+        from repro_torch.analysis.verify import verify_program
+        diags.extend(verify_program(program).diagnostics)
     return Report(tuple(diags))

@@ -4,7 +4,9 @@ The PyTorch twin of ``repro.core.stencil``: the same ``StencilSpec`` and
 spec builders (identical offset and weight tuples), and ``apply_stencil``,
 the oracle every policy kernel is held against. The oracle sums the taps
 in f32 in tap order, one rounded multiply and one rounded add per tap, and
-casts once to the grid dtype, so it equals the JAX oracle bit for bit.
+casts once to the grid dtype, so it equals the JAX oracle bit for bit. Like
+XLA's arithmetic, it flushes f32 subnormals to zero: in every operand and
+after every multiply and add (:func:`ftz`).
 
 Grids are stored *including* their boundary ring: a domain of ``ny x nx``
 interior points is a tensor of shape ``(ny + 2r, nx + 2r)`` where ``r`` is
@@ -15,6 +17,8 @@ acts on the last ``spec.ndim`` axes.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import struct
 
 import torch
@@ -94,6 +98,62 @@ def f32(w: float) -> float:
     return struct.unpack("f", struct.pack("f", w))[0]
 
 
+#: Smallest normal f32; anything of smaller magnitude is a subnormal.
+F32_TINY = torch.finfo(torch.float32).tiny
+
+
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its f32 subnormals flushed to zero.
+
+    XLA flushes subnormals in its arithmetic (inputs and results), and so
+    do the CUDA kernels of ``csrc/stencil.cu`` (built with ``-ftz=true``);
+    PyTorch keeps them. The plain versions flush explicitly, the same way
+    on either device, so a diffusion front's subnormal tail is zero in all
+    three.
+    """
+    return torch.where(x.abs() < F32_TINY, torch.zeros_like(x), x)
+
+
+#: A product whose exact value lies below this flushes. XLA on x86 and the
+#: card decide on the product rounded to 24 bits with an unbounded
+#: exponent, so an exact product within half a unit (2**-150) below the
+#: smallest normal rounds to it and stays; one further below flushes,
+#: although f32 rounding would lift it to the smallest normal.
+MUL_FLUSH_BELOW = float(F32_TINY) - 2.0 ** -151
+
+
+def _f32_step(x: float, units: int) -> float:
+    """The f32 ``units`` representable values away from ``x`` (x >= 0)."""
+    bits = struct.unpack("I", struct.pack("f", x))[0] + units
+    return struct.unpack("f", struct.pack("I", bits))[0]
+
+
+@functools.lru_cache(maxsize=256)
+def flush_magnitude(w: float) -> float:
+    """The largest f32 magnitude ``|c|`` whose product with the weight
+    ``w`` flushes: ``|c| · |w| < MUL_FLUSH_BELOW``, decided exactly (the
+    product of two f32 values is exact in Python's f64)."""
+    aw = abs(w)
+    if aw == 0.0:
+        return math.inf
+    c = f32(min(MUL_FLUSH_BELOW / aw, 3.4e38))
+    while c > 0 and c * aw >= MUL_FLUSH_BELOW:
+        c = _f32_step(c, -1)
+    while _f32_step(c, 1) * aw < MUL_FLUSH_BELOW:
+        c = _f32_step(c, 1)
+    return c
+
+
+def mul_ftz(c: torch.Tensor, w: float) -> torch.Tensor:
+    """``c * w`` in f32 (``c`` already flushed, ``w`` an f32 value), its
+    result flushed as XLA and the card flush it: zero exactly where
+    ``|c| <= flush_magnitude(w)``, which also catches the products that
+    f32 rounding lifts to the smallest normal from below
+    :data:`MUL_FLUSH_BELOW`. Every other product is normal or zero."""
+    return torch.where(c.abs() <= flush_magnitude(w), torch.zeros_like(c),
+                       c * w)
+
+
 def interior(u: torch.Tensor, r: int, ndim: int = 2) -> torch.Tensor:
     """View of the interior (non-boundary) region of a ringed grid."""
     return u[(...,) + tuple(slice(r, s - r) for s in u.shape[-ndim:])]
@@ -103,16 +163,19 @@ def tap_sum(c: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
     """f32 weighted sum of the shifted interior views of ``c``, in tap order.
 
     ``c`` must already be f32. Returns the interior-shaped sum; one rounded
-    multiply and one rounded add per tap (no fused multiply-add).
+    multiply and one rounded add per tap (no fused multiply-add), with
+    subnormals flushed in the operand and after each of them (:func:`ftz`,
+    :func:`mul_ftz`).
     """
     r = spec.radius
     shape = c.shape[-spec.ndim:]
+    c = ftz(c)
     acc = None
     for off, w in zip(spec.offsets, spec.weights):
         idx = (...,) + tuple(slice(r + o, s - r + o)
                              for o, s in zip(off, shape))
-        term = c[idx] * f32(w)
-        acc = term if acc is None else acc + term
+        term = mul_ftz(c[idx], f32(w))
+        acc = term if acc is None else ftz(acc + term)
     return acc
 
 

@@ -5,8 +5,12 @@
 // its plain PyTorch version (src/repro_torch/engine/policies.py): every tap
 // is one __fmul_rn and one __fadd_rn, in tap order, so nothing is contracted
 // into a fused multiply-add whatever -fmad says, and the results are held
-// against the plain versions bit for bit. Values are stored in the grid
-// dtype with round-to-nearest-even (__float2bfloat16_rn for bf16).
+// against the plain versions bit for bit. This file alone is built with
+// -ftz=true (src/repro_torch/kernels/build.py), so each multiply and add
+// reads subnormal operands as zero and flushes a subnormal result to zero,
+// as XLA's arithmetic does and the plain versions do explicitly. Values
+// are stored in the grid dtype with round-to-nearest-even
+// (__float2bfloat16_rn for bf16).
 //
 // Grids are ringed (H, W) planes, row-major and contiguous, with an optional
 // batch of planes along gridDim.z. The kernels write interior cells only;

@@ -67,6 +67,21 @@ class DeviceModel:
     mesh_direct_links: bool = True
 
     @property
+    def stream_bw(self) -> float:
+        """Effective per-core DRAM streaming bandwidth (bytes/s)."""
+        return self.noc_bw if self.noc_bw > 0 else self.dram_bw
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        """Physical (rows, cols) core layout; derived near-square if unset."""
+        if self.core_grid is not None:
+            return self.core_grid
+        rows = max(1, int(self.cores ** 0.5))
+        while self.cores % rows:
+            rows -= 1
+        return (rows, self.cores // rows)
+
+    @property
     def halo_link_bw(self) -> float:
         """Bytes/s one mesh halo exchange rides: the direct interconnect,
         or the host-mediated inter-node pipe when neighbour devices cannot

@@ -160,7 +160,8 @@ class ExchangeBill:
 
 
 def _price_rounds(rounds, *, d_max: int, radius: int, taps: int,
-                  shard_shape, dtype, device, mesh_shape) -> ExchangeBill:
+                  shard_shape, dtype, device, mesh_shape,
+                  compute_rate: float | None = None) -> ExchangeBill:
     """Price halo rounds on one shard. ``rounds`` is ``[(reps, sweeps)]``;
     ``shard_shape`` is the *extended* shard (interior + 2*d_max halo)."""
     dev = get_device(device)
@@ -173,6 +174,10 @@ def _price_rounds(rounds, *, d_max: int, radius: int, taps: int,
     feasible = overlap_feasible(hl, wl, d_max, px * py)
 
     def compute_s(area: int, sweeps: int) -> float:
+        if compute_rate is not None and compute_rate > 0:
+            # Measured/simulated seconds per point per sweep (e.g. the
+            # backends simulator's counters-derived chip rate).
+            return compute_rate * area * sweeps
         # Fused-traffic floor: one read + one write of the block per
         # round whatever the policy ends up being (non-fused policies pay
         # more on both sides of the comparison), flops per sweep.
@@ -219,7 +224,8 @@ def _price_rounds(rounds, *, d_max: int, radius: int, taps: int,
 def price_exchange(sched: SweepSchedule, *, shard_shape, dtype,
                    spec: StencilSpec,
                    device: "str | DeviceModel | None" = None,
-                   mesh_shape: tuple | None = None) -> ExchangeBill:
+                   mesh_shape: tuple | None = None,
+                   compute_rate: float | None = None) -> ExchangeBill:
     """Bill a distributed schedule's halo rounds serial vs overlapped.
 
     ``shard_shape`` is the extended shard ``plan_distributed`` returns
@@ -227,6 +233,12 @@ def price_exchange(sched: SweepSchedule, *, shard_shape, dtype,
     decomposition (e.g. ``(4,)`` or ``(2, 2)``); ``device`` the model
     whose link/DRAM/vector numbers do the pricing — exchange bytes ride
     :attr:`~repro_torch.engine.device.DeviceModel.halo_link_bw`.
+
+    ``compute_rate`` (seconds per point per sweep) replaces the built-in
+    compute roofline with a simulated rate — the backends simulator
+    passes its counters-derived chip rate here so both layers price the
+    identical interior/rind geometry. None (every other caller) keeps the
+    roofline.
     """
     rounds = [(sched.fused_blocks, sched.t)]
     if sched.remainder:
@@ -234,7 +246,8 @@ def price_exchange(sched: SweepSchedule, *, shard_shape, dtype,
     return _price_rounds(rounds, d_max=sched.halo_depth,
                          radius=sched.radius, taps=spec.taps,
                          shard_shape=shard_shape, dtype=dtype,
-                         device=device, mesh_shape=mesh_shape)
+                         device=device, mesh_shape=mesh_shape,
+                         compute_rate=compute_rate)
 
 
 def build_schedule(iters: int, *, spec: StencilSpec, shape, dtype,

@@ -7,7 +7,10 @@ takes seconds)::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o <build dir>/lib<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source, so an edited source is
+``stencil.cu`` alone adds ``-ftz=true`` (:data:`SOURCE_FLAGS`): its f32
+arithmetic flushes subnormals, as XLA's does, so K1–K4 equal the JAX
+stencil path on a diffusion front's subnormal tail. The library name
+carries a hash of the source and its flags, so an edited source is
 rebuilt and a stale library is never loaded. The build directory is
 ``repro_torch/_build`` (listed in ``.gitignore``); ``REPRO_TORCH_BUILD_DIR``
 moves it. Nothing here runs at import: the CPU tests import every module
@@ -29,6 +32,8 @@ SOURCES = ("stencil", "flash_attention", "flash_attention_sm90", "conv1d",
            "stream")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: Flags one source adds to :data:`NVCC_FLAGS`.
+SOURCE_FLAGS = {"stencil": ("-ftz=true",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -50,10 +55,16 @@ def _nvcc() -> str:
                            "the CUDA kernels are built on first launch")
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    """The flags ``name``'s source is compiled with."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def _target(name: str, csrc: pathlib.Path) -> pathlib.Path:
     src = csrc / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                            + " ".join(nvcc_flags(name)).encode()
+                            ).hexdigest()[:12]
     return build_dir() / f"lib{name}-{digest}.so"
 
 
@@ -65,7 +76,7 @@ def _start(name: str, csrc: pathlib.Path = CSRC
         return out, None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
+    cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(csrc / f"{name}.cu")]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                  stderr=subprocess.STDOUT, text=True)
 

@@ -23,15 +23,23 @@ measured rows of Tables II–VI. It prints the same CSV,
   multiple of 128 <= 2**24 / w, so about 64 MiB: past the card's 50 MB L2,
   as the 64 MiB arrays of Tables III–V are;
 
-plus the paper's ``paper_*`` rows as they are. ``us_per_call`` is the
+then the JAX tables' modeled ``sim_*`` rows, and the paper's ``paper_*``
+rows as they are. ``us_per_call`` is the
 median device time of one call from CUDA events
 (``obs/timing.py::device_ms``). ``derived`` prices the same call with the
 port's ``gpu_sm90`` device model (``engine/device.py``) as
 ``model_sm90_s=`` or ``model_sm90_GPt/s=``, with the JAX tables' formulas.
 
-The JAX tables' ``sim_e150_*`` and ``sim_counted_*`` rows need the
-backends simulator, which is not ported yet, and Table VI's (8, 128)-tile
-``tile_efficiency`` is a TPU notion: neither is printed here.
+The ``sim_*`` rows are the JAX tables' model rows, from the same
+formulas on the port's backends simulator (:mod:`repro_torch.backends`):
+``sim_e150_*`` prices the paper's 4096 x 4096 int32 streams
+(``report.model_copy_seconds``) and Table VI's tile alignment on the
+Grayskull e150 model, and Table V's ``sim_counted_*`` counts the bytes a
+point that the simulated shifted and rowchunk programs move. They are
+modeled, never measured (``us_per_call`` 0), are not scaled by
+``--scale``, and the simulator runs on ``--device``. Table VI's
+``tpu_v5e`` (8, 128)-tile ``tile_efficiency`` is a TPU notion and stays
+out.
 
 Without ``--device cpu`` it runs on the card, and fails without one. With
 ``--device cpu`` the kernels' plain versions run and ``us_per_call`` is
@@ -223,15 +231,69 @@ def table6(device, scale: int, time_us) -> list[str]:
 
 
 TABLES = {2: table2, 3: table3, 4: table4, 5: table5, 6: table6}
+E150 = "grayskull_e150"
+
+
+def sim_rows(table: int, device) -> list[str]:
+    """Table ``table``'s modeled ``sim_*`` rows (the JAX tables' formulas,
+    on the port's simulator run on ``device``)."""
+    from repro_torch.backends.report import (bytes_per_point,
+                                             model_copy_seconds,
+                                             tile_efficiency)
+
+    def copy_s(**kw) -> float:
+        return model_copy_seconds((SIDE, SIDE), "int32", device=E150,
+                                  torch_device=device, **kw)
+
+    rows = []
+    if table == 3:
+        for seg, sync, label in ((SIDE, False, "16KB_nosync"),
+                                 (1024 // 4, False, "1KB_nosync"),
+                                 (1, False, "4B_nosync"),
+                                 (1, True, "4B_sync")):
+            s = copy_s(seg_cols=seg, sync=sync)
+            rows.append(row(f"sim_e150_{label}", 0.0,
+                            f"txn_bytes={seg * 4};model_e150_s={s:.4f}"))
+    elif table == 4:
+        for seg, label in ((SIDE, "16KB"), (1, "4B")):
+            rows.append(row(f"sim_e150_{label}_noncontig", 0.0,
+                            f"model_e150_s={copy_s(seg_cols=seg):.4f}"))
+    elif table == 5:
+        from repro_torch import backends
+        from repro_torch.core.stencil import jacobi_2d_5pt
+        for factor in (1, 32):
+            s = copy_s(seg_cols=SIDE, reads=factor)
+            rows.append(row(f"sim_e150_x{factor}", 0.0,
+                            f"model_e150_s={s:.4f}"))
+        spec = jacobi_2d_5pt()
+        u = torch.zeros((66, 130), dtype=torch.float32, device=device)
+        for name in ("shifted", "rowchunk"):
+            res = backends.simulate(u, spec, policy=name, iters=1,
+                                    device=E150)
+            rows.append(row(f"sim_counted_{name}", 0.0,
+                            f"bytes_per_point={bytes_per_point(res):.2f};"
+                            f"taps={spec.taps}"))
+    elif table == 6:
+        for interleaved, label in ((False, "none_repl32"),
+                                   (True, "32KB_repl32")):
+            s = copy_s(seg_cols=SIDE, reads=32, interleaved=interleaved)
+            rows.append(row(f"sim_e150_{label}", 0.0,
+                            f"model_e150_s={s:.4f}"))
+        for w in (1024, 1026):
+            eff = tile_efficiency(512, w, device=E150)
+            rows.append(row(f"sim_e150_tile_width_{w}", 0.0,
+                            f"tile_efficiency={eff:.3f}"))
+    return rows
 
 
 def table_rows(table: int, device="cuda", scale: int = 1) -> list[str]:
-    """Table ``table``'s measured rows, then its paper rows, as CSV."""
+    """Table ``table``'s measured rows, its modeled ``sim_*`` rows, then
+    its paper rows, as CSV."""
     from repro_torch.core.stencil import require_device
     if scale < 1:
         raise ValueError(f"scale must be positive; got {scale}")
     dev = require_device(device)
-    rows = TABLES[table](dev, scale, timer(dev))
+    rows = TABLES[table](dev, scale, timer(dev)) + sim_rows(table, dev)
     return rows + [row(name, 0.0, derived)
                    for name, derived in PAPER_ROWS[table]]
 

@@ -23,6 +23,14 @@ With ``--trace`` the distributed run goes through its span-per-phase
 executor, whose spans ``python -m repro_torch.obs summarize PATH``
 reconciles against the bill.
 
+``--backend sim`` lowers the policy to a Tensix-style three-kernel
+program and runs the functional simulator (:mod:`repro_torch.backends`)
+on ``--device`` instead of the kernels, for the device model
+``--device-model`` (default: the one detected), printing the program,
+the modeled GPt/s, energy and per-kernel counters. ``--verify`` checks
+the schedule (and, where the policy lowers, its Tensix program)
+statically before the run and prints the report; a rejection exits 1.
+
 ``--check`` compares against the port's own ``reference`` policy (the
 plain oracle) at the realized iteration count: max |err| < 1e-4 in f32,
 5e-2 in bf16; a distributed solve must also equal the single-device
@@ -68,6 +76,21 @@ def main(argv=None) -> None:
                          "(engine.run_converged)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the grid lives; cuda launches the kernels")
+    ap.add_argument("--backend", default="torch", choices=["torch", "sim"],
+                    help="'torch' runs the engine (the CUDA kernels on the "
+                         "card); 'sim' lowers the policy to a Tensix-style "
+                         "three-kernel program and runs the functional "
+                         "simulator (repro_torch.backends), reporting "
+                         "modeled GPt/s and per-kernel counters for the "
+                         "device model")
+    ap.add_argument("--device-model", default=None,
+                    help="device registry name the simulator plans for "
+                         "(e.g. grayskull_e150; --backend sim only); "
+                         "default: the detected one")
+    ap.add_argument("--verify", action="store_true",
+                    help="statically verify the chosen schedule (and, when "
+                         "the policy lowers, the Tensix program) before "
+                         "execution and print the diagnostic report")
     ap.add_argument("--check", action="store_true",
                     help="verify against the reference policy")
     ap.add_argument("--serve", action="store_true",
@@ -130,12 +153,26 @@ def _dispatch(args) -> None:
     dev = u0.device
     if dev.type == "cuda":
         print(f"card: {torch.cuda.get_device_name(dev)}")
+    if args.device_model is not None and args.backend != "sim":
+        raise SystemExit("--device-model plans the simulator; the engine "
+                         "plans for the card it runs on (add --backend "
+                         "sim)")
     if args.serve:
+        if args.devices > 1 or args.backend != "torch":
+            raise SystemExit("--serve drives the single-device engine; "
+                             "drop --devices/--backend")
+        if args.verify and args.kernel != "reference":
+            _verify(args, u0, args.kernel)
         _serve(args, u0)
+        return
+    if args.backend == "sim":
+        _simulate(args, u0)
         return
     if args.devices > 1:
         _distributed(args, u0)
         return
+    if args.verify and args.kernel != "reference":
+        _verify(args, u0, args.kernel)
 
     def solve():
         if args.tol is not None:
@@ -168,6 +205,76 @@ def _dispatch(args) -> None:
 
     if args.check:
         _check(args, u0, inner, iters_done)
+
+
+def _verify(args, u0: torch.Tensor, policy: str,
+            mesh_shape: tuple | None = None) -> None:
+    """Static pre-flight: schedule feasibility + program protocol."""
+    from repro_torch import engine
+    from repro_torch.analysis import check_schedule
+    from repro_torch.backends.lower import (LoweringError, lower,
+                                            lowerable_policies)
+    from repro_torch.core.stencil import jacobi_2d_5pt
+    spec = jacobi_2d_5pt()
+    device = args.device_model
+    t = args.t if args.t is not None else (
+        args.depth if mesh_shape is not None else None)
+    sched = engine.build_schedule(
+        args.iters, spec=spec, shape=u0.shape, dtype=u0.dtype,
+        policy=policy, t=t, device=device, mesh_shape=mesh_shape,
+        exchange_cadence=mesh_shape is not None,
+        torch_device=u0.device.type)
+    prog = None
+    if sched.policy in lowerable_policies():
+        try:
+            prog = lower(u0.shape, u0.dtype, spec, sched.policy,
+                         t=sched.t if sched.fused else None, device=device)
+        except LoweringError as e:
+            print(f"verify: lowering rejected — {e}")
+            raise SystemExit(1)
+    report = check_schedule(sched, shape=u0.shape, dtype=u0.dtype,
+                            spec=spec, device=device,
+                            mesh_shape=mesh_shape, program=prog)
+    print(f"verify: {report.describe()}")
+    if not report.ok:
+        raise SystemExit(1)
+
+
+def _simulate(args, u0: torch.Tensor) -> None:
+    """Lower to the decoupled reader/compute/writer program and run the
+    functional simulator on ``u0``'s device: numbers + modeled cost."""
+    from repro_torch import backends, engine
+    from repro_torch.backends.report import summarize
+    if args.devices > 1:
+        raise SystemExit("--backend sim models one chip's core grid; "
+                         "drop --devices (cores are simulated inside)")
+    policy = args.kernel
+    if policy == "reference":
+        policy = "rowchunk"  # the oracle has no lowering; use §VI
+    if args.verify:
+        _verify(args, u0, policy)
+    _sync(u0.device)
+    t0 = time.perf_counter()
+    res = backends.simulate(u0, policy=policy, iters=args.iters, t=args.t,
+                            device=args.device_model)
+    _sync(u0.device)
+    dt = time.perf_counter() - t0
+    s = summarize(res)
+    inner = res.grid[1:-1, 1:-1].to(torch.float32)
+    print(res.programs[0].describe())
+    print(f"kernel={s['policy']} backend=sim device={s['device']} "
+          f"grid={args.ny}x{args.nx} iters={args.iters} "
+          f"cores={s['cores_used']}")
+    print(f"sim_wall={dt:.3f}s  model={s['model_time_s']:.6f}s  "
+          f"model_GPt/s={s['gpts']:.3f}  "
+          f"model_energy_J={s['energy_j']:.3f} (MODELED)  "
+          f"bytes/pt={s['bytes_per_point']:.2f}  "
+          f"dram_txns={s['dram_txns']}")
+    res_delta = float(engine.residual_for()(res.grid))
+    print(f"residual={res_delta:.3e}  mean={float(inner.mean()):.6f}  "
+          f"max={float(inner.max()):.6f}")
+    if args.check:
+        _check(args, u0, inner, args.iters)
 
 
 def _serve(args, u0: torch.Tensor) -> None:
@@ -214,6 +321,8 @@ def _distributed(args, u0: torch.Tensor) -> None:
     t = args.t if args.t is not None else args.depth
     overlap = {"auto": None, "on": True, "off": False}[args.overlap]
     spec = jacobi_2d_5pt()
+    if args.verify:
+        _verify(args, u0, args.kernel, mesh_shape=(args.devices,))
     sched, shard_shape, _ = engine.plan_distributed(
         u0.shape, u0.dtype, spec, mesh=mesh, policy=args.kernel,
         iters=args.iters, t=t, overlap=overlap)

@@ -1,8 +1,9 @@
-"""K2 and K3 against another checkout's, warm and cold, on one card.
+"""K1–K4 and the main path against another checkout's, on one card.
 
     python -m repro_torch.launch.sweep_ab --other PATH [--rounds N]
 
-Times K2 (``stencil_rowchunk``) and K3 (``stencil_dbuf``) of this checkout
+Times K1 (``stencil_temporal``, t = 8), K2 (``stencil_rowchunk``), K3
+(``stencil_dbuf``) and K4 (``stencil_shifted``) of this checkout
 and of another one (another checkout of this repository, such as a parent
 commit unpacked with ``git archive``) on the paper's grid, 1026 x 9218 with
 the 5-point spec, in bf16 and f32, with ``torch.nn.functional.conv2d`` on
@@ -16,8 +17,12 @@ one input and output, which fit the 50 MB L2 together) and cold
 (:func:`cold_ms`: the calls rotate over input/output pairs of at least
 three times the L2, so no call finds its operands there), and a digest of
 its output on a seeded grid. The digests must agree across checkouts (both
-compute the same f32 operations, bit for bit). Exits non-zero without a
-card, or if they differ.
+compute the same f32 operations, bit for bit). It also times the main
+path, ``engine.run(make_laplace_problem(1024, 9216), policy="auto",
+iters=1003)`` (one call, device time, warm only), and prints its digest
+and subnormal cells without gating them: two checkouts may flush a
+diffusion front's subnormal tail differently. Exits non-zero without a
+card, or if the kernels' digests differ.
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ def _child() -> None:
     """Time the ``repro_torch`` on ``sys.path`` (one checkout's) and print
     one JSON line."""
     from repro_torch import engine
-    from repro_torch.core.stencil import jacobi_2d_5pt
+    from repro_torch.core.stencil import jacobi_2d_5pt, make_laplace_problem
     from repro_torch.obs.timing import device_ms
     torch.backends.cudnn.allow_tf32 = False
     spec = jacobi_2d_5pt()
@@ -83,16 +88,18 @@ def _child() -> None:
 
         def copy(x, o):
             return o.copy_(x)
-        for name in ("rowchunk", "dbuf", "conv2d", "copy_"):
+        for name in ("temporal", "rowchunk", "dbuf", "shifted", "conv2d",
+                     "copy_"):
             if name == "conv2d":
                 call = conv
             elif name == "copy_":
                 call = copy
             else:
                 fn = getattr(engine, f"stencil_{name}")
+                kw = {"t": 8} if name == "temporal" else {}
 
-                def call(x, o, fn=fn):
-                    return fn(x, spec, out=o)
+                def call(x, o, fn=fn, kw=kw):
+                    return fn(x, spec, out=o, **kw)
             got = call(u, out)
             torch.cuda.synchronize()
             # The yardsticks are timed only (conv2d may pick its algorithm
@@ -103,6 +110,18 @@ def _child() -> None:
                 "warm_ms": device_ms(lambda: call(u, out)),
                 "cold_ms": cold_ms(call, pairs), "digest": digest}
         del pairs
+        u0 = make_laplace_problem(NY, NX, dtype=getattr(torch, dname))
+        got = engine.run(u0, spec, policy="auto", iters=1003)
+        x = got.float()
+        res[f"main {dname}"] = {
+            "warm_ms": device_ms(lambda: engine.run(u0, spec, policy="auto",
+                                                    iters=1003),
+                                 reps=5, inner=1),
+            "cold_ms": float("nan"), "digest": None,
+            "main_digest": hashlib.sha256(
+                x.cpu().numpy().tobytes()).hexdigest()[:16],
+            "subnormal_cells": int(((x != 0) & (
+                x.abs() < torch.finfo(torch.float32).tiny)).sum())}
         torch.cuda.empty_cache()
     print(json.dumps(res))
 
@@ -139,10 +158,13 @@ def main(argv=None) -> None:
                             ("this", this), ("other", args.other)):
             res = _run(tree.resolve())
             for key, row in res.items():
+                extra = (f" main_digest={row['main_digest']} "
+                         f"subnormal_cells={row['subnormal_cells']}"
+                         if "main_digest" in row else "")
                 print(f"round {rnd} {label:5s} {key:17s} "
                       f"warm_ms={row['warm_ms']:.6f} "
                       f"cold_ms={row['cold_ms']:.6f} "
-                      f"digest={row['digest']}")
+                      f"digest={row['digest']}{extra}")
                 if row["digest"] is not None:
                     digests.setdefault(key, set()).add(row["digest"])
     bad = sorted(k for k, d in digests.items() if len(d) != 1)

@@ -12,8 +12,10 @@ findings, so "the trace proved nothing" is visible rather than silent.
 The distributed executor's traced rounds attach their
 :class:`~repro_torch.engine.schedule.ExchangeBill` to every
 ``exchange``/``compute``/``interior``/``rind`` span
-(:mod:`repro_torch.dist.stencil`); the simulator's bills are not ported
-(ROADMAP Queue 1, E1). A served or single-device trace carries no model
+(:mod:`repro_torch.dist.stencil`), and the backends simulator's
+``sim.simulate`` span its ``SimResult.model_time_s``
+(:mod:`repro_torch.backends.sim`), whose measured/modeled ratio is the
+simulation-overhead factor. A served or single-device trace carries no model
 and reconciles to ``OBS-UNMODELED``, as the reference's does on such a
 trace. The text of every report is the reference's.
 

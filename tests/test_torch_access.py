@@ -3,10 +3,10 @@ the CPU.
 
 At ``--scale 4`` Tables III–V's 4096 x 4096 arrays shrink to the JAX
 tables' 1024 x 1024, so the port's measured rows must carry exactly the
-names of the JAX tables' measured rows (read from those modules in their
-dry mode, ``REPRO_BENCH_DRY=1``), less the ``sim_*`` rows of the
-simulator the port does not have yet; the ``paper_*`` rows must equal the
-JAX tables' rows as they are.
+names of the JAX tables' rows (read from those modules in their dry
+mode, ``REPRO_BENCH_DRY=1``); the modeled ``sim_*`` rows (the port's
+backends simulator, at the paper's unscaled size) and the ``paper_*``
+rows must equal the JAX tables' rows as they are.
 """
 import importlib
 import os
@@ -55,6 +55,8 @@ def test_csv_contract(cpu_run):
             assert name and derived and "v5e" not in derived
             if name.startswith("paper_"):
                 assert float(us) == 0.0
+            elif name.startswith("sim_"):
+                assert float(us) == 0.0 and "sm90" not in derived
             else:
                 assert float(us) > 0.0
                 assert "model_sm90_" in derived
@@ -64,12 +66,12 @@ def test_csv_contract(cpu_run):
 def test_rows_match_the_jax_tables(cpu_run, table, monkeypatch):
     monkeypatch.setenv("REPRO_BENCH_DRY", "1")
     mod = importlib.import_module(f"benchmarks.{JAX_TABLES[table]}")
-    want = [line for line in mod.run() if not line.startswith("sim_")]
+    want = mod.run()
     got = cpu_run[1][table]
     assert [r.split(",")[0] for r in got] == [r.split(",")[0] for r in want]
-    paper = [r for r in want if r.startswith("paper_")]
-    assert [r for r in got if r.startswith("paper_")] == [
-        r.replace(",0.0,", ",0.000,") for r in paper]
+    fixed = [r for r in want if r.startswith(("paper_", "sim_"))]
+    assert [r for r in got if r.startswith(("paper_", "sim_"))] == [
+        r.replace(",0.0,", ",0.000,") for r in fixed]
 
 
 def test_card_sizes_pass_the_l2():

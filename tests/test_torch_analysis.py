@@ -149,10 +149,25 @@ def test_check_schedule_refusals_fire_as_in_the_reference():
                     "SCHED-PROG-MISMATCH"}
 
 
-def test_check_schedule_with_a_program_names_the_backends():
-    _, tsched = _schedules(16, "jacobi5", (18, 18), "temporal", 8)
-    with pytest.raises(NotImplementedError, match="E1"):
-        TA.check_schedule(tsched, shape=(18, 18), program=object())
+@pytest.mark.parametrize("prog_policy,prog_t,prog_device", [
+    ("temporal", 8, "grayskull_e150"), ("temporal", 4, "grayskull_e150"),
+    ("rowchunk", None, "grayskull_e150"), ("temporal", 8, "cpu_ref")])
+def test_check_schedule_with_a_program_names_the_backends(
+        prog_policy, prog_t, prog_device):
+    """``program=`` cross-checks a lowered Tensix program of the backends
+    against the schedule (policy, depth, device) and runs the static
+    verifier over it, with the reference's findings and text."""
+    from repro.backends.lower import lower as jlower
+    from repro_torch.backends.lower import lower as tlower
+    jsched, tsched = _schedules(16, "jacobi5", (18, 18), "temporal", 8)
+    js, ts = SPECS["jacobi5"]
+    jprog = jlower((18, 18), jnp.float32, js, prog_policy, t=prog_t,
+                   device=prog_device)
+    tprog = tlower((18, 18), torch.float32, ts, prog_policy, t=prog_t,
+                   device=prog_device)
+    kw = dict(shape=(18, 18), device="grayskull_e150")
+    _both(JA.check_schedule(jsched, program=jprog, **kw),
+          TA.check_schedule(tsched, program=tprog, **kw))
 
 
 @pytest.mark.parametrize("changes", [

@@ -812,7 +812,10 @@ def test_access_tables_run_on_the_card(cuda):
     for table in sorted(access.TABLES):
         for line in access.table_rows(table, cuda, scale=8):
             name, us, _ = line.split(",")
-            assert (float(us) == 0.0) == name.startswith("paper_"), line
+            # Measured rows carry a time; the paper's and the modeled
+            # simulator rows carry none.
+            assert (float(us) == 0.0) == name.startswith(("paper_",
+                                                          "sim_")), line
 
 
 @pytest.mark.parametrize("unroll", [4, 8])
@@ -989,3 +992,100 @@ def test_run_distributed_on_the_card_bitwise(cuda, dtype, spec_name, policy,
     want = TE.run(u, spec, policy=policy, iters=7, t=3)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Subnormals, flushed in the kernels as in their plain versions
+# ---------------------------------------------------------------------------
+
+def _subnormal_grid(shape, dtype, dev, seed=0):
+    """Magnitudes up to 16x the smallest normal f32, half negative."""
+    g = torch.Generator().manual_seed(seed)
+    mag = torch.rand(shape, generator=g) * 16
+    neg = torch.rand(shape, generator=g) < 0.5
+    u = torch.where(neg, -mag, mag) * TS.F32_TINY
+    return u.to(dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("spec_name", list(SPECS))
+@pytest.mark.parametrize("policy", ["shifted", "rowchunk", "dbuf",
+                                    "temporal"])
+def test_kernels_flush_subnormals_as_their_plain_versions(
+        cuda, policy, spec_name, shape, dtype):
+    spec = SPECS[spec_name]
+    u = _subnormal_grid(shape, dtype, cuda, seed=len(spec_name))
+    kw = {"t": 3} if policy == "temporal" else {}
+    got = getattr(TE, f"stencil_{policy}")(u, spec, **kw)
+    want = getattr(TE, f"stencil_{policy}_plain")(u, spec, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    r = spec.radius
+    inner = got[r:-r, r:-r].float()
+    assert int(((inner != 0) & (inner.abs() < TS.F32_TINY)).sum()) == 0
+
+
+def test_main_path_flushes_the_fronts_tail(cuda):
+    """Past ~60 sweeps the diffusion front's tail is subnormal: the card's
+    engine.run equals its plain schedule and keeps no subnormal cell."""
+    u = TS.make_laplace_problem(62, 258, left=1.0, device=cuda)
+    for policy in ("rowchunk", "temporal"):
+        got = TE.run(u, policy=policy, iters=200, t=8)
+        want = TE.run(u.cpu(), policy=policy, iters=200, t=8,
+                      device="cpu_ref")
+        assert torch.equal(got.cpu(), want)
+        x = got.float()
+        assert int(((x != 0) & (x.abs() < TS.F32_TINY)).sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# The Grayskull model's simulator on the card: its twin is engine.run
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("policy", ["shifted", "rowchunk", "dbuf",
+                                    "temporal"])
+def test_simulator_on_the_card_equals_engine_run(cuda, policy, dtype):
+    from repro_torch import backends
+    u = TS.make_laplace_problem(64, 256, dtype=dtype, device=cuda)
+    res = backends.simulate(u, policy=policy, iters=11, t=8, bm=16,
+                            device="grayskull_e150")
+    assert res.grid.device.type == "cuda"
+    assert res.programs[0].tilized == (dtype == torch.bfloat16)
+    TE.reset_launch_counts()
+    want = TE.run(u, policy=policy, iters=11, t=8, bm=16)
+    torch.cuda.synchronize()
+    assert TE.LAUNCHES[policy] == (1 if policy == "temporal" else 11)
+    assert torch.equal(res.grid, want)
+    cpu = backends.simulate(u.cpu(), policy=policy, iters=11, t=8, bm=16,
+                            device="grayskull_e150")
+    assert torch.equal(cpu.grid, res.grid.cpu())
+    assert cpu.counters.as_dict() == res.counters.as_dict()
+    assert cpu.model_time_s == res.model_time_s
+
+
+def test_simulator_mesh_bill_on_the_card(cuda):
+    from repro_torch import backends
+    u = TS.make_laplace_problem(64, 256, device=cuda)
+    kw = dict(policy="temporal", iters=11, t=8, bm=16,
+              device="grayskull_e150")
+    one = backends.simulate(u, **kw)
+    for overlap in (False, True):
+        res = backends.simulate(u, mesh_shape=(4,), overlap=overlap, **kw)
+        assert torch.equal(res.grid, one.grid)
+        bill = res.exchange_model
+        assert res.model_time_s == (bill.overlapped_s if overlap
+                                    else bill.serial_s)
+
+
+def test_backends_smoke_and_copy_model_on_the_card(cuda):
+    from repro_torch.backends import report
+    from repro_torch.backends.sim import _smoke
+    assert _smoke("grayskull_e150", "cuda") == 0
+    on_card = report.model_copy_seconds((4096, 4096), "int32", seg_cols=1,
+                                        device="grayskull_e150")
+    on_cpu = report.model_copy_seconds((4096, 4096), "int32", seg_cols=1,
+                                       device="grayskull_e150",
+                                       torch_device="cpu")
+    assert on_card == on_cpu

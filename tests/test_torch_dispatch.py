@@ -199,10 +199,15 @@ def test_unported_paths_raise():
     ts = TS.jacobi_2d_5pt()
     _, tu = _problem(14, 30, seed=8)
     from repro_torch.analysis import check_schedule
+    from repro_torch.backends import lower
+    # The Tensix program cross-check is ported with the backends: a
+    # program lowered from the schedule it runs checks clean.
     sched = TE.build_schedule(4, spec=ts, shape=tu.shape, dtype=tu.dtype,
-                              torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="E1"):
-        check_schedule(sched, shape=tu.shape, program=object())
+                              device="cpu_ref", torch_device="cpu")
+    prog = lower(tu.shape, tu.dtype, ts, sched.policy,
+                 t=sched.t if sched.fused else None, device="cpu_ref")
+    assert check_schedule(sched, shape=tu.shape, device="cpu_ref",
+                          program=prog).ok
     # The distributed executor's schedule is ported: t groups the sweeps
     # a halo exchange, as the reference's does.
     js = JS.jacobi_2d_5pt()
