@@ -45,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
    jacobi5 kernel), each lane equal to its solo run bit for bit;
 6. K8 (flash attention) against its plain PyTorch version on the card, at
    the JAX package's test shapes, at GQA groups of 3 and 5, hd 256,
-   lengths that are not a multiple of the key tile, at hd 112 (zamba2-7b:
+   lengths that are not a multiple of the key tile, at chatglm3-6b's
+   serving shape (B=4, S=2048, H=32, K=2, hd=128 causal: a GQA group of
+   16), at hd 112 (zamba2-7b:
    a ragged length, a GQA group of 2, and its serving shape B=4, S=2048,
    H=K=32, causal) and hd 80 (hubert-xlarge's heads: B=4, S=2048, H=K=16,
    non-causal, and a ragged causal case), and at qwen2.5-3b's serving
@@ -199,7 +201,46 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     on) of each temporal case, its grid equal to the single chip's; the
     ``sim.simulate`` span and counter tracks; and ``run_sweep(full=True)``,
     720 cells, the 540 off the GPU all verified as the reference's;
-15. one JSON line listing the kernels, then the card's name and power
+15. the paper's Jacobi entry points at the paper's grid, bf16 and f32:
+    ``core.jacobi.jacobi_run_temporal(u, 1003, t=8)`` must equal
+    ``engine.run(policy="temporal")`` bit for bit with 125 K1 (jacobi5)
+    and 3 K2 launches; ``jacobi_solve(check_every=200,
+    policy="rowchunk")`` at a tolerance between the second and third
+    chunk residuals of the same loop over K2's plain version must realize
+    that loop's iterations, residual and grid bit for bit, one K2 launch
+    a sweep; ``kernels.ops.jacobi_step`` at v0, v1, v1db and v2 and the
+    deprecated ``kernels.jacobi`` wrappers (which alone warn) must each
+    launch K4, K2, K3 or K1 once and equal ``engine.stencil_*`` bit for
+    bit, and ``ref`` launch nothing; ``python -m repro_torch.launch.solve
+    --kernel v2 --temporal 8 ... --iters 1003 --dtype bfloat16 --check``
+    runs in a subprocess and must print ``CHECK OK``; the three example
+    twins (``repro_torch.examples.{quickstart,distributed_jacobi,
+    serve_lm}``) run on the card, the stencil ones launching kernels;
+16. three more decoders at full width and depth, served as in phase 7
+    (random weights from a seed, ``attn_impl="flash"``, 4 requests of
+    2048-token prompts and 32 greedy tokens): ``chatglm3-6b`` (28 layers,
+    32 heads of 128 over 2 KV heads: a GQA group of 16, half-dim rotary)
+    and ``internvl2-2b``'s text backbone (24 layers, 16 heads over 8 KV
+    heads) must launch K8 once a layer in the prefill wave, all on the
+    tensor-core kernel, and nothing else; against ``attn_impl="jnp"``, at
+    the JAX package's bound (rtol=5e-2, atol=8e-2), each layer's attention
+    through K8 fed either route's stream, and the whole prefill's logits
+    in f32 compute (K8's split-TF32 route, once a layer), and for
+    internvl2-2b the whole bf16 prefill's logits; chatglm3-6b's whole
+    bf16 excess is printed beside both routes' distance to f32 and not
+    gated (its jnp route alone is over the bound from f32, as zamba2-7b's
+    is in phase 11: ``WHOLE_BF16_UNGATED``);
+    internvl2-2b also runs one forward with 256 image embeddings ahead of
+    1792 tokens (24 K8 launches, finite logits); ``minicpm3-4b`` (62
+    layers of MLA) must launch no K8 at all (its q/k head dim, 96, is not
+    v's, 64, so its prefill attends by the plain chunked path, as the
+    reference's), and in f32 its absorbed decode over the latent cache
+    must agree with the expanded path at every position (rtol = atol =
+    1e-3: the two differ by re-association only). Each prints its
+    parameter count, peak memory, prefill and decode times (wall, and
+    kernel time from ``torch.profiler``) and must give the same tokens on
+    a second greedy run; the memory is freed between models;
+17. one JSON line listing the kernels, then the card's name and power
     limit, then the result line.
 
 It imports nothing of JAX and nothing of the ``repro`` package, and exits
@@ -215,6 +256,7 @@ import pathlib
 import subprocess
 import sys
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -280,9 +322,12 @@ FLASH_SHAPES = [(2, 128, 4, 2, 32, True, 64), (1, 256, 8, 8, 16, True, 64),
                 (1, 300, 6, 3, 80, True, 300),
                 (4, 2048, 16, 2, 128, True, 512),
                 (4, 2048, 32, 32, 112, True, 512),
-                (4, 2048, 16, 16, 80, False, 512)]
-# head dim of a timed S=2048 shape -> the key of its stats
-FLASH_TIMED = {128: "hd128", 112: "hd112", 80: "hd80"}
+                (4, 2048, 16, 16, 80, False, 512),
+                (4, 2048, 32, 2, 128, True, 512)]
+# (H, K, hd) of a timed S=2048 shape -> the key of its stats: qwen2.5-3b's,
+# zamba2-7b's, hubert-xlarge's heads, chatglm3-6b's (a GQA group of 16)
+FLASH_TIMED = {(16, 2, 128): "hd128", (32, 32, 112): "hd112",
+               (16, 16, 80): "hd80", (32, 2, 128): "group16"}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 CONV = ("K7", "src/repro_torch/csrc/conv1d.cu",
         "src/repro/kernels/conv1d.py:52")
@@ -1012,9 +1057,9 @@ def phase_flash(peaks, stats) -> None:
             print(f"K8 {label:42s} {dname:8s} {route:9s} max|err|={err:.3e} "
                   f"(tol {tol:g}) kernel_ms={k_ms:.6f} bound_ms={b_ms:.6f} "
                   f"({b_by}) sdpa_ms={lib_ms:.6f} plain_ms={p_ms:.6f}{extra}")
-            s[FLASH_TIMED[hd]][dname].update(shape=label, max_abs_err=err,
-                                             **timed)
-            if hd == 128:
+            key = FLASH_TIMED[(h, kh, hd)]
+            s[key][dname].update(shape=label, max_abs_err=err, **timed)
+            if key == "hd128":
                 s[dname].update(timed)
 
 
@@ -2152,6 +2197,351 @@ def phase_dist(smi: str, stats) -> None:
         print(rep.describe())
 
 
+# version -> (its policy, its deprecated wrapper in kernels/jacobi.py)
+JACOBI_VERSIONS = {"v0": ("shifted", "jacobi_v0_shifted"),
+                   "v1": ("rowchunk", "jacobi_v1_rowchunk"),
+                   "v1db": ("dbuf", "jacobi_v1_dbuf"),
+                   "v2": ("temporal", "jacobi_v2_temporal")}
+SOLVE_EVERY = 200
+
+
+def add_path(stats, policy: str, path: str, n: int) -> None:
+    stats[policy].setdefault("paths", {})[path] = n
+
+
+def plain_solve(u: torch.Tensor, spec: StencilSpec, tol: float,
+                max_iters: int) -> tuple[torch.Tensor, int, float, list]:
+    """``jacobi_solve``'s loop over K2's plain version: chunks of
+    SOLVE_EVERY sweeps until the chunk's flushed max update is <= tol."""
+    from repro_torch.core.stencil import max_update
+    res, it, curve = float("inf"), 0, []
+    while res > np.float32(tol) and it < max_iters:
+        v = u
+        for _ in range(SOLVE_EVERY):
+            v = engine.stencil_rowchunk_plain(v, spec)
+        res = float(max_update(v, u, spec.radius))
+        u, it = v, it + SOLVE_EVERY
+        curve.append(res)
+    return u, it, res, curve
+
+
+def phase_jacobi(smi: str, stats) -> None:
+    from repro_torch.core import jacobi as J
+    from repro_torch.examples import distributed_jacobi, quickstart, serve_lm
+    from repro_torch.kernels import jacobi as legacy
+    from repro_torch.kernels import ops
+    print(f"== phase 15: the paper's Jacobi entry points at {NY}x{NX} ==")
+    spec = jacobi_2d_5pt()
+    for dname in ("bfloat16", "float32"):
+        dtype = DTYPES[dname]
+        u0 = make_laplace_problem(NY, NX, dtype=dtype)
+        got, counts = counted(lambda: J.jacobi_run_temporal(u0, ITERS, t=T))
+        variants = dict(engine.TEMPORAL_VARIANTS)
+        want = engine.run(u0, spec, policy="temporal", iters=ITERS, t=T)
+        print(f"[{dname}] jacobi_run_temporal(u, {ITERS}, t={T}): launches "
+              f"{counts}")
+        check(counts == {"shifted": 0, "rowchunk": 3, "dbuf": 0,
+                         "temporal": 125} and variants["jacobi5"] == 125,
+              f"jacobi_run_temporal must launch 125 jacobi5 K1 and 3 K2: "
+              f"{counts}, {variants}")
+        check(torch.equal(got, want),
+              "jacobi_run_temporal != engine.run(policy='temporal')")
+        if dname == "bfloat16":
+            for policy in ("temporal", "rowchunk"):
+                add_path(stats, policy, "jacobi_run_temporal(u, 1003, t=8)",
+                         counts[policy])
+
+        # A tolerance between the plain chain's second and third chunk
+        # residuals: the solve stops after three chunks.
+        _, _, _, curve = plain_solve(u0, spec, 0.0, 3 * SOLVE_EVERY)
+        tol = (curve[1] + curve[2]) / 2
+        want, n_want, r_want, _ = plain_solve(u0, spec, tol, 2000)
+        (got, n, res), counts = counted(lambda: J.jacobi_solve(
+            u0, tol=tol, max_iters=2000, check_every=SOLVE_EVERY,
+            policy="rowchunk"))
+        print(f"[{dname}] jacobi_solve(tol={tol:.6e}, check_every="
+              f"{SOLVE_EVERY}, policy='rowchunk'): iters {n} (plain chain "
+              f"{n_want}), residual {res:.6e} (plain {r_want:.6e}), "
+              f"launches {counts}")
+        check(n == n_want < 2000 and res == r_want
+              and torch.equal(got, want),
+              "jacobi_solve must realize the plain chain's iterations and "
+              "equal it bit for bit")
+        check(counts == {"shifted": 0, "rowchunk": n, "dbuf": 0,
+                         "temporal": 0}
+              and engine.ROWCHUNK_VARIANTS["jacobi5"] == n,
+              f"jacobi_solve(rowchunk) must launch K2 once a sweep: "
+              f"{counts}")
+        if dname == "bfloat16":
+            add_path(stats, "rowchunk", "jacobi_solve(rowchunk, "
+                     "check_every=200)", n)
+
+        for version, (policy, wrapper) in JACOBI_VERSIONS.items():
+            kw = {"t": T} if policy == "temporal" else {}
+            want = getattr(engine, f"stencil_{policy}")(u0, spec, **kw)
+            old = getattr(legacy, wrapper)
+            for label, call in ((f"ops.jacobi_step({version})",
+                                 lambda: ops.jacobi_step(u0,
+                                                         version=version)),
+                                (old.__name__, lambda: old(u0))):
+                with warnings.catch_warnings(record=True) as warned:
+                    warnings.simplefilter("always")
+                    got, counts = counted(call)
+                deprecated = any(issubclass(w.category, DeprecationWarning)
+                                 for w in warned)
+                check(counts == {p: int(p == policy) for p in counts}
+                      and torch.equal(got, want)
+                      and deprecated == (label == old.__name__),
+                      f"[{dname}] {label} must launch {policy} once, equal "
+                      f"engine.stencil_{policy} and warn only if deprecated: "
+                      f"{counts}")
+                if dname == "bfloat16":
+                    add_path(stats, policy, label, counts[policy])
+        got, counts = counted(lambda: ops.jacobi_step(u0, version="ref"))
+        check(sum(counts.values()) == 0
+              and torch.equal(got, apply_stencil(u0, spec)),
+              "ops.jacobi_step('ref') is the plain oracle and launches "
+              "nothing")
+        print(f"[{dname}] v0 / v1 / v1db / v2 (ops and the deprecated "
+              f"wrappers) each launched its kernel once, bit for bit "
+              f"engine.stencil_*; ref launched none")
+
+    cmd = [sys.executable, "-m", "repro_torch.launch.solve", "--kernel",
+           "v2", "--temporal", str(T), "--ny", str(NY), "--nx", str(NX),
+           "--iters", str(ITERS), "--dtype", "bfloat16", "--check"]
+    src = str(pathlib.Path(__file__).resolve().parent / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                         timeout=600)
+    print(res.stdout.strip())
+    check(res.returncode == 0 and "CHECK OK" in res.stdout
+          and "temporal: 1003 sweeps = 125 x t=8 + 3 (rowchunk)"
+          in res.stdout,
+          f"{' '.join(cmd[1:])} failed: {res.stderr[-2000:]}")
+    print(f"{' '.join(cmd[2:])}: CHECK OK in {time.perf_counter() - t0:.1f}s")
+
+    for name, mod in (("quickstart", quickstart),
+                      ("distributed_jacobi", distributed_jacobi),
+                      ("serve_lm", serve_lm)):
+        print(f"-- python -m repro_torch.examples.{name} (on the card) --")
+        reset_all_launches()
+        mod.main([])
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in all_launches().items() if v}
+        print(f"examples.{name}: launches {counts}")
+        # serve_lm's 12-token prompts take no kernel of the port (its
+        # smoke model attends by the plain path), only the card.
+        check(bool(counts) or name == "serve_lm",
+              f"examples.{name} launched no kernel")
+    print(f"phase 15 on {smi}")
+
+
+#: Decoders whose whole bf16 prefill logits, flash against jnp, are
+#: printed and not gated: chatglm3-6b's jnp route alone is 9.0841e-02 over
+#: the bound from its own f32 logits (measured on one H100), so no attention
+#: kernel, however right, could keep the two bf16 routes within it. K8 is
+#: gated at every layer on both routes' streams and the whole prefill in
+#: f32 instead, as zamba2-7b's is in phase 11 (ROADMAP Queue 3).
+WHOLE_BF16_UNGATED = {"chatglm3-6b"}
+
+
+@torch.no_grad()
+def layer_attention_gaps(model, ref, walk, toks: torch.Tensor) -> list:
+    """Each layer's attention through ``model`` (K8) against ``ref`` (the
+    same weights on the jnp route), fed ``walk``'s stream (one of the
+    two). Returns the largest excess over 5e-2 * |ref| per layer."""
+    from repro_torch.layers.attention import attention
+    cfg = walk.cfg
+    x = basic.embed(walk.embedding, toks, cfg)
+    b, s = toks.shape
+    pos = torch.arange(s, device=toks.device).expand(b, s)
+    gaps = []
+    for layer in walk.layers:
+        h = basic.rms_norm(layer.ln1, x, cfg.norm_eps)
+        got, _ = attention(layer.attn, h, pos, model.cfg)
+        want, _ = attention(layer.attn, h, pos, ref.cfg)
+        gaps.append(excess(got, want)[1])
+        del got, want, h
+        x, _ = layer(x, pos, cfg)
+    return gaps
+
+
+def gate_k8_routes(arch: str, model, eng, toks, got, stats) -> None:
+    """K8 against the jnp route: the whole bf16 prefill logits (gated but
+    for WHOLE_BF16_UNGATED), each layer's attention on both routes'
+    streams, and the whole prefill in f32 compute (K8's split-TF32
+    route), all at the JAX package's bound, rtol 5e-2 and atol 8e-2."""
+    cfg = model.cfg
+
+    def prefill(**kw):
+        twin = model.with_config(dataclasses.replace(cfg, **kw))
+        return ServeEngine(twin, batch_size=WAVE,
+                           max_len=eng.max_len)._prefill(toks)[0]
+
+    want = prefill(attn_impl="jnp")
+    err, worst = excess(got, want)
+    reset_all_launches()
+    exact = prefill(dtype=torch.float32)
+    torch.cuda.synchronize()
+    f32_counts = dict(flash.LAUNCHES)
+    exact_jnp = prefill(dtype=torch.float32, attn_impl="jnp")
+    gaps = [excess(x, exact_jnp)[1] for x in (got, want)]
+    ungated = arch in WHOLE_BF16_UNGATED
+    print(f"prefill logits in bf16, flash vs jnp"
+          f"{' (not a gate)' if ungated else ''}: max |diff| {err:.6e}, "
+          f"largest excess over rtol*|jnp| {worst:.6e} (atol 8e-2), logit "
+          f"range [{float(want.min()):.3f}, {float(want.max()):.3f}]; "
+          f"against the f32 jnp logits, largest excess of flash (bf16) "
+          f"{gaps[0]:.6e}, of jnp (bf16) {gaps[1]:.6e}")
+    check(bool(got.isfinite().all()) and bool(want.isfinite().all())
+          and (ungated or worst <= 8e-2),
+          f"{arch}: flash prefill logits off the jnp path")
+    jnp_model = model.with_config(dataclasses.replace(cfg, attn_impl="jnp"))
+    for name, walk in (("flash", model), ("jnp", jnp_model)):
+        layer_gaps = layer_attention_gaps(model, jnp_model, walk, toks)
+        print(f"each layer's attention, flash vs jnp on the {name} route's "
+              f"stream: largest excess over 5e-2*|jnp| "
+              f"{max(layer_gaps):.4e} (atol 8e-2; layers "
+              f"{', '.join(f'{w:.2e}' for w in layer_gaps)})")
+        check(all(w <= 8e-2 for w in layer_gaps),
+              f"{arch}: a layer's attention through K8 off the jnp path on "
+              f"the {name} route's stream: {layer_gaps}")
+    err, worst = excess(exact, exact_jnp)
+    print(f"prefill logits in f32 compute, flash vs jnp: max |diff| "
+          f"{err:.6e}, largest excess over rtol*|jnp| {worst:.6e} (atol "
+          f"8e-2); K8 launches {f32_counts}")
+    check(f32_counts == {"flash_attention": cfg.n_layers,
+                         "flash_attention_wgmma": 0,
+                         "flash_attention_tf32": cfg.n_layers}
+          and bool(exact.isfinite().all()) and worst <= 8e-2,
+          f"{arch}: the f32 prefill must launch the split-TF32 K8 once a "
+          f"layer and agree with the jnp route")
+    key = FLASH_TIMED.get((cfg.n_heads, cfg.n_kv_heads, cfg.hd))
+    if key == "group16":
+        stats["flash"][key]["float32"].update(
+            launches=cfg.n_layers,
+            path=f"ServeEngine._prefill({arch}, flash, float32)")
+
+
+@torch.no_grad()
+def mla_absorbed_vs_expanded(model) -> None:
+    """minicpm3 in f32: a 256-token prompt and 16 decode steps through the
+    absorbed path over the latent cache, against one forward of the same
+    272 tokens by the expanded path, at every position."""
+    cfg = model.cfg
+    model = model.with_config(dataclasses.replace(cfg, dtype=torch.float32))
+    g = torch.Generator("cuda").manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (WAVE, 272), generator=g,
+                         device="cuda")
+    full, _, _ = model.forward({"tokens": toks})
+    cache = model.init_cache(WAVE, 272)
+    first, cache, _ = model.forward({"tokens": toks[:, :256]}, cache)
+    steps = [first]
+    for i in range(256, 272):
+        out, cache, _ = model.forward({"tokens": toks[:, i:i + 1]}, cache)
+        steps.append(out)
+    absorbed = torch.cat(steps, dim=1)
+    diff = (absorbed - full).abs()
+    worst = float((diff - 1e-3 * full.abs()).max())
+    print(f"minicpm3 f32, absorbed (256-token prompt + 16 steps over the "
+          f"latent cache) vs expanded (one 272-token forward): max |diff| "
+          f"{float(diff.max()):.6e}, largest excess over 1e-3*|expanded| "
+          f"{worst:.6e} (atol 1e-3), logit range [{float(full.min()):.3f}, "
+          f"{float(full.max()):.3f}]")
+    check(bool(absorbed.isfinite().all()) and worst <= 1e-3,
+          "MLA's absorbed decode is off its expanded path in f32")
+
+
+def serve_decoder(arch: str, smi: str, stats) -> None:
+    cfg = dataclasses.replace(configs.get_config(arch), attn_impl="flash")
+    attn = (f"MLA (q lora {cfg.q_lora_rank}, kv lora {cfg.kv_lora_rank}, "
+            f"qk {cfg.qk_nope_head_dim}+{cfg.qk_rope_head_dim}, v "
+            f"{cfg.v_head_dim})" if cfg.attn_type == "mla"
+            else f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}")
+    print(f"-- {cfg.name} at full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {attn}, vocab {cfg.vocab_size}), "
+          f"attn_impl=flash, {WAVE} x {PROMPT} tokens + {NEW} new --")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.n_params(), "params != count_params")
+    print(f"random init of {n_params} params in "
+          f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(0, cfg.vocab_size, size=(WAVE, PROMPT),
+                           dtype=np.int32)
+    eng = ServeEngine(model, batch_size=WAVE, max_len=PROMPT + NEW + 8)
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=NEW) for p in prompts]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    done = eng.generate(requests())
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"launches: { {k: v for k, v in counts.items() if v} }")
+    want_k8 = 0 if cfg.attn_type == "mla" else cfg.n_layers
+    check(counts["flash_attention"] == counts["flash_attention_wgmma"]
+          == want_k8 and sum(counts.values()) == 2 * want_k8,
+          f"{arch}: one prefill wave must launch K8 {want_k8} times (once "
+          f"a layer, on the tensor-core kernel; MLA never) and nothing "
+          f"else: {counts}")
+    for i, r in enumerate(done):
+        check(len(r.generated) == NEW
+              and all(0 <= t < cfg.padded_vocab for t in r.generated),
+              f"request {i}: {len(r.generated)} tokens, ids {r.generated}")
+    print(f"req0 -> {done[0].generated[:8]} ...; every request got {NEW} "
+          f"tokens in [0, {cfg.padded_vocab})")
+    toks = torch.from_numpy(prompts.astype(np.int64)).cuda()
+    got, cache = eng._prefill(toks)
+    if want_k8:
+        path = f"ServeEngine.generate({arch}, flash)"
+        stats["flash"].setdefault("paths", {})[path] = want_k8
+        key = FLASH_TIMED.get((cfg.n_heads, cfg.n_kv_heads, cfg.hd))
+        if key == "group16":
+            stats["flash"][key]["bfloat16"].update(launches=want_k8,
+                                                   path=path)
+        gate_k8_routes(arch, model, eng, toks, got, stats)
+    if cfg.family == "vlm":
+        img = torch.randn((WAVE, cfg.vlm_image_tokens, cfg.vlm_vision_dim),
+                          generator=torch.Generator("cuda").manual_seed(3),
+                          device="cuda")
+        reset_all_launches()
+        with torch.no_grad():
+            logits, _, _ = model.forward(
+                {"tokens": toks[:, :PROMPT - cfg.vlm_image_tokens],
+                 "image_embeds": img}, last_only=True)
+        torch.cuda.synchronize()
+        check(logits.shape == (WAVE, 1, cfg.padded_vocab)
+              and bool(logits.isfinite().all())
+              and flash.LAUNCHES["flash_attention_wgmma"] == cfg.n_layers,
+              f"{arch}: a forward with {cfg.vlm_image_tokens} image "
+              f"embeddings must launch K8 once a layer")
+        print(f"forward with {cfg.vlm_image_tokens} image embeddings ahead "
+              f"of {PROMPT - cfg.vlm_image_tokens} tokens: finite logits, "
+              f"K8 {flash.LAUNCHES['flash_attention_wgmma']} launches")
+    if cfg.attn_type == "mla":
+        mla_absorbed_vs_expanded(model)
+    print(f"params={n_params} on {smi}")
+    time_serving(eng, toks, cache, done, requests, first, peak, smi)
+
+
+def phase_decoders(smi: str, stats) -> None:
+    print("== phase 16: chatglm3-6b, internvl2-2b and minicpm3-4b at full "
+          "width ==")
+    for arch in ("chatglm3-6b", "internvl2-2b", "minicpm3-4b"):
+        serve_decoder(arch, smi, stats)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     smi, peaks = card()
     print(f"== phase 1: card: {smi} ==")
@@ -2185,6 +2575,8 @@ def main() -> None:
     phase_solve_serve(smi, stats)
     phase_dist(smi, stats)
     phase_grayskull(smi, stats)
+    phase_jacobi(smi, stats)
+    phase_decoders(smi, stats)
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
         s = stats[policy]
@@ -2210,10 +2602,13 @@ def main() -> None:
             "shape": "B=4 S=2048 H=16 K=2 hd=128 causal",
             **({"launches": s["launches"], "path": s["path"]}
                if dname == "bfloat16" else {}), **s[dname],
-            # zamba2-7b's serving shape (its launches from phase 11), and
-            # hubert-xlarge's heads (no path of the port runs them yet)
+            **({"paths": {s["path"]: s["launches"], **s["paths"]}}
+               if dname == "bfloat16" else {}),
+            # zamba2-7b's serving shape (its launches from phase 11),
+            # hubert-xlarge's heads (no path of the port runs them yet) and
+            # chatglm3-6b's group of 16 (its launches from phase 16)
             **{key: {"launches": 0, **s[key][dname]}
-               for key in ("hd112", "hd80")}})
+               for key in ("hd112", "hd80", "group16")}})
     kid, source, replaces = CONV
     s = stats["conv1d"]
     kernels.append({

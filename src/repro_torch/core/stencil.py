@@ -190,16 +190,27 @@ def apply_stencil(u: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
     return out
 
 
+def max_update(v: torch.Tensor, u: torch.Tensor, r: int,
+               ndim: int = 2) -> torch.Tensor:
+    """``|v - u|_inf`` over the interior in f32, flushed as XLA flushes:
+    both operands (DAZ) and the difference (FTZ). The difference's flush
+    rides on the reduced value, since ``ftz(max|d|) == max(ftz(|d|))``.
+
+    A 0-d tensor for one grid; for a batch, one value per leading index.
+    """
+    d = (ftz(interior(v, r, ndim).to(torch.float32))
+         - ftz(interior(u, r, ndim).to(torch.float32))).abs()
+    return ftz(d.amax(dim=tuple(range(-ndim, 0))))
+
+
 def residual(u: torch.Tensor, spec: StencilSpec) -> torch.Tensor:
-    """Max-norm update delta ``|apply(u) - u|_inf`` over the interior.
+    """Max-norm update delta ``|apply(u) - u|_inf`` over the interior,
+    subnormals flushed as the JAX residual's XLA arithmetic flushes them
+    (:func:`max_update`).
 
     A 0-d f32 tensor for one grid; for a batch, one value per leading index.
     """
-    v = apply_stencil(u, spec)
-    r = spec.radius
-    d = (interior(v, r, spec.ndim).to(torch.float32)
-         - interior(u, r, spec.ndim).to(torch.float32)).abs()
-    return d.amax(dim=tuple(range(-spec.ndim, 0)))
+    return max_update(apply_stencil(u, spec), u, spec.radius, spec.ndim)
 
 
 def require_device(device) -> torch.device:

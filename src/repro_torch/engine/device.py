@@ -67,6 +67,10 @@ class DeviceModel:
     mesh_direct_links: bool = True
 
     @property
+    def fast_memory_mib(self) -> float:
+        return self.fast_memory_bytes / 2**20
+
+    @property
     def stream_bw(self) -> float:
         """Effective per-core DRAM streaming bandwidth (bytes/s)."""
         return self.noc_bw if self.noc_bw > 0 else self.dram_bw
@@ -88,6 +92,13 @@ class DeviceModel:
         read each other's memory (``mesh_direct_links=False``)."""
         return self.interconnect_bw if self.mesh_direct_links \
             else self.inter_node_bw
+
+    def describe(self) -> str:
+        return (f"{self.name}: {self.cores} core(s) x "
+                f"{self.fast_memory_mib:.2f} MiB fast mem, "
+                f"{self.preferred_dtype}, peak {self.peak_flops / 1e12:.0f} "
+                f"TFLOP/s, DRAM {self.dram_bw / 1e9:.0f} GB/s, "
+                f"TDP {self.tdp_watts:.0f} W")
 
 
 _REGISTRY: dict[str, DeviceModel] = {}

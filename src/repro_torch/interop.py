@@ -18,8 +18,9 @@ arrays and loads it into the port's model for the config's family: the
 stacked ``layers`` leaves with their leading ``n_layers`` axis, or a
 hybrid's ``groups`` leaves stacked ``(n_groups, period, ...)`` and
 ``tail`` leaves ``(n_tail, ...)``, plus the unstacked rest (``embedding``,
-``ln_f``, the hybrid's ``shared_*``). Both store f32, so the load is
-exact.
+``ln_f``, the VLM's ``vision_proj``, the hybrid's ``shared_*``); MLA's
+projections (``q_down``, ``q_norm``, ..., ``wo``) ride in ``layers`` under
+``attn`` as GQA's do. Both store f32, so the load is exact.
 :func:`load_params` loads one module from a nested dict.
 """
 from __future__ import annotations

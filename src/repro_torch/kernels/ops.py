@@ -1,17 +1,56 @@
 """Public wrappers over the port's kernels (twin of ``repro.kernels.ops``).
 
-:func:`flash_attention` (K8) and :func:`conv1d` (K7), on one device. The
-reference's ``shard_map`` branch of ``flash_attention`` (batch over the
-data axis, KV heads over the model axis) comes with the distributed
-slice; the stencil step wrappers (``jacobi_step``) are not ported yet.
+``jacobi_step(u, version=...)`` is the paper-facing entry point of the
+stencil kernels: ``version`` selects the kernel generation (or the plain
+reference), each an engine policy. :func:`flash_attention` (K8) and
+:func:`conv1d` (K7) run on one device. The reference's ``shard_map``
+branch of ``flash_attention`` (batch over the data axis, KV heads over
+the model axis) comes with the sharded LM slice (ROADMAP Queue 1, C2).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from repro_torch import engine
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.conv1d import (conv1d_depthwise_causal,
                                         conv1d_depthwise_causal_plain)
 from repro_torch.kernels.flash_attention import flash_attention_local
+
+VERSIONS = ("ref", "v0", "v1", "v1db", "v2")
+
+# Historical version tags -> engine policy names (the engine registry is
+# the source of truth; these aliases exist for paper-facing CLIs/tests).
+VERSION_TO_POLICY = {
+    "v0": "shifted",
+    "v1": "rowchunk",
+    "v1db": "dbuf",
+    "v2": "temporal",
+}
+
+
+def jacobi_step(u: torch.Tensor, *, version: str = "v1",
+                bm: int | None = None, t: int = 8) -> torch.Tensor:
+    """One (or, for v2, ``t``) Jacobi sweep(s) with the selected kernel:
+    v0 launches K4, v1 K2, v1db K3 and v2 K1 on a CUDA tensor.
+
+    ``bm=None`` takes the planner's tile for the device. The reference's
+    default of 256 rows is a TPU row block; on the card K1 cannot hold a
+    256-row window at ``t = 8`` in shared memory.
+    """
+    if version == "ref":
+        return _ref.jacobi_step(u)
+    if version not in VERSION_TO_POLICY:
+        raise ValueError(
+            f"unknown jacobi kernel version {version!r}; one of {VERSIONS}")
+    return engine.step(u, policy=VERSION_TO_POLICY[version], bm=bm, t=t)
+
+
+def make_step_fn(version: str = "v1", **kw):
+    """Partially-applied step function for the solver drivers."""
+    return functools.partial(jacobi_step, version=version, **kw)
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,

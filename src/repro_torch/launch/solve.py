@@ -7,6 +7,12 @@ reports wall time, GPt/s and the final residual. Runs on the card unless
   PYTHONPATH=src python -m repro_torch.launch.solve --ny 1024 --nx 9216 \\
       --iters 1003 --dtype bfloat16 --check
 
+``--kernel`` takes an engine policy name (default ``auto``) or one of
+the paper's tags: ``v0|v1|v1db|v2`` are ``shifted|rowchunk|dbuf|temporal``
+(``kernels.ops.VERSION_TO_POLICY``), and ``ref`` steps the plain oracle
+through ``core.jacobi.jacobi_run``. ``--temporal`` is the fusion depth;
+``--t`` overrides it.
+
 ``--serve`` routes the solve through
 :class:`repro_torch.serve.SolveServer` as one request (admission,
 bucketing, superblocks of batched launches, eviction on ``--tol``) and
@@ -47,11 +53,16 @@ import time
 
 import torch
 
+from repro_torch.core.jacobi import jacobi_run
+from repro_torch.kernels.ops import VERSION_TO_POLICY
 from repro_torch.obs.compare import reconcile
 from repro_torch.obs.trace import Tracer, use_tracer
 
 POLICIES = ["reference", "shifted", "rowchunk", "dbuf", "temporal", "auto",
             "tuned"]
+#: The paper's kernel generations (``kernels.ops.VERSION_TO_POLICY``),
+#: and ``ref``, the plain oracle stepped by ``core.jacobi.jacobi_run``.
+LEGACY = ["ref", "v0", "v1", "v1db", "v2"]
 
 
 def _sync(dev: torch.device) -> None:
@@ -64,10 +75,16 @@ def main(argv=None) -> None:
     ap.add_argument("--ny", type=int, default=512)
     ap.add_argument("--nx", type=int, default=512)
     ap.add_argument("--iters", type=int, default=200)
-    ap.add_argument("--kernel", default="auto", choices=POLICIES,
-                    help="engine policy")
+    ap.add_argument("--kernel", default="auto", choices=LEGACY + POLICIES,
+                    help="engine policy name (legacy ref|v0|v1|v1db|v2 "
+                         "tags still accepted)")
+    ap.add_argument("--temporal", type=int, default=None,
+                    help="temporal-policy fusion depth (default: the "
+                         "engine's, 8)")
     ap.add_argument("--t", type=int, default=None,
-                    help="sweeps per fused block (temporal)")
+                    help="sweeps per fused block / halo exchange; overrides "
+                         "--temporal (single device) and --depth "
+                         "(distributed)")
     ap.add_argument("--dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--tol", type=float, default=None,
@@ -112,6 +129,10 @@ def main(argv=None) -> None:
                          "JSON (inspect with 'python -m repro_torch.obs "
                          "summarize PATH')")
     args = ap.parse_args(argv)
+    args.policy = VERSION_TO_POLICY.get(args.kernel, args.kernel)
+    if args.policy == "ref":
+        args.policy = "reference"
+    args.fuse = args.t if args.t is not None else args.temporal
 
     if args.trace or args.serve:
         # --serve installs a tracer so the progress sink sees its
@@ -161,8 +182,8 @@ def _dispatch(args) -> None:
         if args.devices > 1 or args.backend != "torch":
             raise SystemExit("--serve drives the single-device engine; "
                              "drop --devices/--backend")
-        if args.verify and args.kernel != "reference":
-            _verify(args, u0, args.kernel)
+        if args.verify and args.policy != "reference":
+            _verify(args, u0, args.policy)
         _serve(args, u0)
         return
     if args.backend == "sim":
@@ -171,15 +192,18 @@ def _dispatch(args) -> None:
     if args.devices > 1:
         _distributed(args, u0)
         return
-    if args.verify and args.kernel != "reference":
-        _verify(args, u0, args.kernel)
+    if args.verify and args.policy != "reference":
+        _verify(args, u0, args.policy)
 
     def solve():
         if args.tol is not None:
             return engine.run_converged(u0, tol=args.tol,
                                         max_iters=args.iters,
-                                        policy=args.kernel, t=args.t)
-        out = engine.run(u0, policy=args.kernel, iters=args.iters, t=args.t)
+                                        policy=args.policy, t=args.fuse)
+        if args.kernel == "ref":
+            return jacobi_run(u0, args.iters), args.iters, None
+        out = engine.run(u0, policy=args.policy, iters=args.iters,
+                         t=args.fuse)
         return out, args.iters, None
 
     solve()  # builds the kernels and warms the allocator
@@ -194,7 +218,7 @@ def _dispatch(args) -> None:
     if args.tol is None:
         sched = engine.build_schedule(args.iters, spec=jacobi_2d_5pt(),
                                       shape=u0.shape, dtype=dtype,
-                                      policy=args.kernel, t=args.t)
+                                      policy=args.policy, t=args.fuse)
         print(f"schedule: {sched.describe()}")
     inner = out[1:-1, 1:-1].to(torch.float32)
     print(f"kernel={args.kernel} device={dev} grid={args.ny}x{args.nx} "
@@ -218,7 +242,7 @@ def _verify(args, u0: torch.Tensor, policy: str,
     spec = jacobi_2d_5pt()
     device = args.device_model
     t = args.t if args.t is not None else (
-        args.depth if mesh_shape is not None else None)
+        args.depth if mesh_shape is not None else args.temporal)
     sched = engine.build_schedule(
         args.iters, spec=spec, shape=u0.shape, dtype=u0.dtype,
         policy=policy, t=t, device=device, mesh_shape=mesh_shape,
@@ -248,14 +272,14 @@ def _simulate(args, u0: torch.Tensor) -> None:
     if args.devices > 1:
         raise SystemExit("--backend sim models one chip's core grid; "
                          "drop --devices (cores are simulated inside)")
-    policy = args.kernel
+    policy = args.policy
     if policy == "reference":
         policy = "rowchunk"  # the oracle has no lowering; use §VI
     if args.verify:
         _verify(args, u0, policy)
     _sync(u0.device)
     t0 = time.perf_counter()
-    res = backends.simulate(u0, policy=policy, iters=args.iters, t=args.t,
+    res = backends.simulate(u0, policy=policy, iters=args.iters, t=args.fuse,
                             device=args.device_model)
     _sync(u0.device)
     dt = time.perf_counter() - t0
@@ -286,7 +310,7 @@ def _serve(args, u0: torch.Tensor) -> None:
         server = SolveServer(torch_device=u0.device)
         req = server.submit(SolveRequest(grid=u0, tol=args.tol,
                                          max_iters=args.iters,
-                                         policy=args.kernel, t=args.t))
+                                         policy=args.policy, t=args.fuse))
         return server, req
 
     if u0.device.type == "cuda":
@@ -322,9 +346,9 @@ def _distributed(args, u0: torch.Tensor) -> None:
     overlap = {"auto": None, "on": True, "off": False}[args.overlap]
     spec = jacobi_2d_5pt()
     if args.verify:
-        _verify(args, u0, args.kernel, mesh_shape=(args.devices,))
+        _verify(args, u0, args.policy, mesh_shape=(args.devices,))
     sched, shard_shape, _ = engine.plan_distributed(
-        u0.shape, u0.dtype, spec, mesh=mesh, policy=args.kernel,
+        u0.shape, u0.dtype, spec, mesh=mesh, policy=args.policy,
         iters=args.iters, t=t, overlap=overlap)
     print(f"schedule: {sched.describe()}  shard={shard_shape} "
           f"mesh={args.devices}x1 on {u0.device}")
@@ -334,7 +358,7 @@ def _distributed(args, u0: torch.Tensor) -> None:
     print(f"exchange bill: {bill.describe()}")
 
     def solve():
-        return engine.run_distributed(u0, spec, mesh=mesh, policy=args.kernel,
+        return engine.run_distributed(u0, spec, mesh=mesh, policy=args.policy,
                                       iters=args.iters, t=t, overlap=overlap)
 
     if u0.device.type == "cuda":

@@ -1,8 +1,9 @@
 """Model factory + parameter accounting (twin of ``repro.models.registry``).
 
-The port builds the dense, SSM and hybrid families; :func:`count_params` counts
-any config the port builds, from its parameter shapes (a model made on the
-``meta`` device holds shapes and no storage).
+The port builds the dense (GQA and MLA), VLM-backbone, SSM and hybrid
+families; :func:`count_params` counts any config the port builds, from its
+parameter shapes (a model made on the ``meta`` device holds shapes and no
+storage).
 """
 from __future__ import annotations
 

@@ -53,8 +53,9 @@ import torch
 
 from repro_torch.analysis import check_bucket, check_schedule
 from repro_torch.analysis.diagnostics import Report, error
-from repro_torch.core.stencil import (StencilSpec, interior, jacobi_2d_5pt,
-                                      require_device, residual)
+from repro_torch.core.stencil import (StencilSpec, ftz, interior,
+                                      jacobi_2d_5pt, require_device,
+                                      residual)
 from repro_torch.engine.device import DeviceModel, get_device
 from repro_torch.engine.dispatch import get_policy, run_batched, run_converged
 from repro_torch.engine.plan import PlanError, dtype_name, plan_for
@@ -239,16 +240,19 @@ def _residuals(vs: torch.Tensor, key: BucketKey,
     ``spare``, which is bit for bit ``apply_stencil``; the difference is
     taken over the whole grids, contiguous (in place for f32; the ring,
     which K2 does not write, is never read), and its largest magnitude
-    over the interior in one reduction."""
+    over the interior in one reduction. Subnormals flush as in
+    ``residual``: K2's interior is flushed already, ``vs`` is flushed
+    before the subtraction, and the difference's flush rides on the
+    reduced value."""
     if spare is None:
         return residual(vs, key.spec)
     a = stencil_rowchunk(vs, key.spec, device=key.device, out=spare)
     if vs.dtype == torch.float32:
-        d = a.sub_(vs)
+        d = a.sub_(ftz(vs))
     else:
-        d = a.to(torch.float32).sub_(vs.to(torch.float32))
-    return torch.linalg.vector_norm(interior(d, key.spec.radius),
-                                    ord=float("inf"), dim=(-2, -1))
+        d = a.to(torch.float32).sub_(ftz(vs.to(torch.float32)))
+    return ftz(torch.linalg.vector_norm(interior(d, key.spec.radius),
+                                        ord=float("inf"), dim=(-2, -1)))
 
 
 def _superblock(bucket: _Bucket, k: int, conv: torch.Tensor,

@@ -397,7 +397,8 @@ FLASH_SHAPES = [(2, 128, 4, 2, 32, True), (1, 256, 8, 8, 16, True),
                 (2, 300, 16, 2, 128, True), (1, 130, 5, 1, 32, False),
                 (4, 2048, 32, 32, 112, True), (2, 300, 32, 32, 112, True),
                 (1, 256, 8, 4, 112, True), (4, 2048, 16, 16, 80, False),
-                (1, 300, 6, 3, 80, True)]
+                (1, 300, 6, 3, 80, True), (4, 2048, 32, 2, 128, True),
+                (2, 300, 32, 2, 128, True), (4, 2048, 16, 8, 128, True)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 
 
@@ -410,9 +411,11 @@ def _qkv(b, s, h, kh, hd, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,s,h,kh,hd,causal", FLASH_SHAPES)
 def test_flash_kernel_matches_plain(cuda, b, s, h, kh, hd, causal, dtype):
-    """Covers GQA groups 1-8, groups of 3 and 5 (a partial row tile), hd
-    16 to 256, the serving prefills' shapes (qwen2.5-3b's at hd 128,
-    zamba2-7b's at hd 112) and hubert-xlarge's heads (hd 80, non-causal),
+    """Covers GQA groups 1-8 and 16, groups of 3 and 5 (a partial row
+    tile), hd 16 to 256, the serving prefills' shapes (qwen2.5-3b's at hd
+    128, zamba2-7b's at hd 112, chatglm3-6b's at group 16 and
+    internvl2-2b's at group 2) and hubert-xlarge's heads (hd 80,
+    non-causal),
     and lengths that are not a multiple of the key tile (32 keys in f32;
     128 in bf16, 64 at hd 256).
     bf16 goes through the wgmma kernel, f32 through the split-TF32 one."""
@@ -447,13 +450,13 @@ def test_flash_f32_stays_on_the_cuda_core_kernel(cuda):
 
 @pytest.mark.parametrize("sq,sk,causal", [(130, 200, True),
                                           (200, 130, True), (77, 77, False)])
-@pytest.mark.parametrize("group", [1, 3, 5, 8])
+@pytest.mark.parametrize("group", [1, 3, 5, 8, 16])
 @pytest.mark.parametrize("hd", [16, 32, 64, 80, 112, 128, 256])
 def test_flash_f32_kernel_over_head_dims_groups_and_lengths(cuda, hd, group,
                                                             sq, sk, causal):
     """The split-TF32 kernel within the f32 gate, 2e-5, of its plain
-    version at every head dim it takes, GQA groups 1, 3, 5 and 8 (3 and 5
-    leave rows of a CTA unused), Sq != Sk both ways (causal by absolute
+    version at every head dim it takes, GQA groups 1, 3, 5, 8 and 16 (3
+    and 5 leave rows of a CTA unused; 16 is chatglm3-6b's), Sq != Sk both ways (causal by absolute
     position), lengths not a multiple of its key tile, and non-causal."""
     from repro_torch.kernels import flash_attention as TF
     g = torch.Generator().manual_seed(hd + group)
@@ -1089,3 +1092,94 @@ def test_backends_smoke_and_copy_model_on_the_card(cuda):
                                        device="grayskull_e150",
                                        torch_device="cpu")
     assert on_card == on_cpu
+
+
+# ------------------- the paper's Jacobi entry points -------------------
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("version,policy", [("v0", "shifted"),
+                                            ("v1", "rowchunk"),
+                                            ("v1db", "dbuf"),
+                                            ("v2", "temporal")])
+def test_versions_launch_their_kernel_once(cuda, version, policy, dtype):
+    """``ops.jacobi_step`` and the deprecated wrappers each launch their
+    policy's kernel once and equal ``engine.stencil_*`` bit for bit."""
+    import warnings
+
+    from repro_torch.kernels import jacobi as TK
+    from repro_torch.kernels import ops as TO
+    u = _grid((130, 259), dtype, cuda, seed=3)
+    spec = TS.jacobi_2d_5pt()
+    kw = dict(t=8) if policy == "temporal" else {}
+    want = getattr(TE, f"stencil_{policy}")(u, spec, **kw)
+    legacy = {"v0": TK.jacobi_v0_shifted, "v1": TK.jacobi_v1_rowchunk,
+              "v1db": TK.jacobi_v1_dbuf, "v2": TK.jacobi_v2_temporal}
+    for call in (lambda: TO.jacobi_step(u, version=version),
+                 lambda: legacy[version](u)):
+        TE.reset_launch_counts()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            got = call()
+        torch.cuda.synchronize()
+        assert TE.LAUNCHES == {p: int(p == policy) for p in TE.LAUNCHES}
+        assert torch.equal(got, want)
+    TE.reset_launch_counts()
+    ref = TO.jacobi_step(u, version="ref")
+    assert sum(TE.LAUNCHES.values()) == 0
+    assert torch.equal(ref, TS.apply_stencil(u, spec))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_jacobi_drivers_on_the_card(cuda, dtype):
+    """``jacobi_run_temporal`` is ``engine.run(temporal)``: 2 K1 and 3 K2
+    launches for 19 sweeps at t = 8; ``jacobi_solve`` stops early on a
+    multiple of ``check_every`` and equals ``jacobi_run`` at its count,
+    one K2 launch a sweep."""
+    from repro_torch.core import jacobi as TJ
+    u = TS.make_laplace_problem(126, 254, dtype=dtype, device=cuda)
+    TE.reset_launch_counts()
+    got = TJ.jacobi_run_temporal(u, 19, t=8)
+    torch.cuda.synchronize()
+    assert (TE.LAUNCHES["temporal"], TE.LAUNCHES["rowchunk"]) == (2, 3)
+    assert torch.equal(got, TE.run(u, policy="temporal", iters=19, t=8))
+    TE.reset_launch_counts()
+    out, n, res = TJ.jacobi_solve(u, tol=2e-2, max_iters=400,
+                                  check_every=20, policy="rowchunk")
+    assert 0 < n < 400 and n % 20 == 0 and res <= 2e-2
+    assert TE.LAUNCHES["rowchunk"] == n
+    assert torch.equal(out, TJ.jacobi_run(u, n, policy="rowchunk"))
+
+
+def test_smoke_decoders_of_slice_13_on_the_card(cuda):
+    """chatglm3 (K8 once a layer in a long prefill), internvl2 (the same,
+    and a forward with image embeddings) and minicpm3 (MLA: no K8)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    rng = np.random.default_rng(1)
+    for arch, launches in (("chatglm3-6b", 2), ("internvl2-2b", 2),
+                           ("minicpm3-4b", 0)):
+        cfg = dataclasses.replace(configs.get_smoke_config(arch),
+                                  attn_chunk=16, attn_impl="flash")
+        model = build_model(cfg, device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(0))
+        reqs = [Request(prompt=rng.integers(0, 512, 64, dtype=np.int32),
+                        max_new_tokens=4) for _ in range(2)]
+        TF.reset_launch_counts()
+        done = ServeEngine(model, batch_size=2, max_len=72).generate(reqs)
+        assert TF.LAUNCHES["flash_attention_wgmma"] == launches, arch
+        assert all(len(r.generated) == 4 for r in done)
+        if cfg.family == "vlm":
+            img = torch.randn((2, cfg.vlm_image_tokens, cfg.vlm_vision_dim),
+                              device=cuda)
+            toks = torch.from_numpy(np.stack([r.prompt[:56] for r in reqs])
+                                    ).long().to(cuda)
+            logits, _, _ = model.forward({"tokens": toks,
+                                          "image_embeds": img})
+            assert logits.shape == (2, 64, cfg.padded_vocab)
+            assert bool(logits.isfinite().all())

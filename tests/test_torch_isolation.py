@@ -41,7 +41,16 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.backends.sim", "repro_torch.backends.report",
             "repro_torch.backends.__main__", "repro_torch.analysis.verify",
             "repro_torch.analysis.sweep",
-            "repro_torch.analysis.__main__"} <= set(MODULES)
+            "repro_torch.analysis.__main__", "repro_torch.core.jacobi",
+            "repro_torch.configs.jacobi2d", "repro_torch.kernels.ref",
+            "repro_torch.kernels.jacobi",
+            "repro_torch.kernels.stencil_general",
+            "repro_torch.examples", "repro_torch.examples.quickstart",
+            "repro_torch.examples.distributed_jacobi",
+            "repro_torch.examples.serve_lm", "repro_torch.layers.mla",
+            "repro_torch.configs.chatglm3_6b",
+            "repro_torch.configs.minicpm3_4b",
+            "repro_torch.configs.internvl2_2b"} <= set(MODULES)
 
 
 def test_source_has_no_jax_or_repro_imports():

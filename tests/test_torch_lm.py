@@ -224,6 +224,106 @@ def test_decoder_forward_logits(arch, dname, impl):
     _close(got, want, dname)
 
 
+NEW_ARCHS = ["chatglm3-6b", "minicpm3-4b", "internvl2-2b"]
+
+
+def _batches(tcfg, seed, n_tok=64):
+    """Tokens (and for the VLM, 8 image embeddings ahead of 56 tokens) as
+    a JAX batch and a port batch."""
+    rng = np.random.default_rng(seed)
+    if tcfg.family == "vlm":
+        n_img = tcfg.vlm_image_tokens
+        img = _rand(rng, 2, n_img, tcfg.vlm_vision_dim)
+        toks = rng.integers(0, tcfg.vocab_size, (2, n_tok - n_img))
+        return ({"tokens": jnp.asarray(toks),
+                 "image_embeds": jnp.asarray(img)},
+                {"tokens": torch.from_numpy(toks),
+                 "image_embeds": torch.from_numpy(img)})
+    toks = rng.integers(0, tcfg.vocab_size, (2, n_tok))
+    return {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+
+
+@pytest.mark.parametrize("impl", ["jnp", "flash"])
+@pytest.mark.parametrize("dname", list(DT))
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_families_forward_logits(arch, dname, impl):
+    """chatglm3 (half-dim rotary, kv 2), minicpm3 (MLA) and internvl2
+    (its text backbone, with image embeddings ahead of the text)."""
+    jcfg, tcfg = _cfgs(arch, dname, attn_chunk=16, attn_impl=impl)
+    jmodel, params = _jax_model(jcfg, seed=2)
+    tmodel = _port_model(tcfg, params)
+    jb, tb = _batches(tcfg, seed=7)
+    want, _, _ = jmodel.forward(params, jb)
+    got, cache, aux = tmodel.forward(tb)
+    assert cache is None and aux == {}
+    assert got.shape == (2, 64, tcfg.padded_vocab)
+    _close(got, want, dname)
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_families_prefill_and_decode_with_cache(arch):
+    jcfg, tcfg = _cfgs(arch, attn_chunk=16, attn_impl="flash")
+    jmodel, params = _jax_model(jcfg, seed=3)
+    tmodel = _port_model(tcfg, params)
+    toks = np.random.default_rng(8).integers(0, tcfg.vocab_size, (2, 32))
+    jcache = jmodel.init_cache(2, 48)
+    tcache = tmodel.init_cache(2, 48)
+    want, jcache, _ = jmodel.forward(params, {"tokens": jnp.asarray(toks)},
+                                     jcache, last_only=True)
+    got, tcache, _ = tmodel.forward({"tokens": torch.from_numpy(toks)},
+                                    tcache, last_only=True)
+    assert type(tcache).__name__ == type(jcache).__name__
+    assert tcache.length == int(jcache.length[0]) == 32
+    _close(got, want, "float32")
+    for nxt in ([[3], [7]], [[11], [5]]):
+        want, jcache, _ = jmodel.forward(
+            params, {"tokens": jnp.asarray(nxt)}, jcache)
+        got, tcache, _ = tmodel.forward({"tokens": torch.tensor(nxt)},
+                                        tcache)
+        _close(got, want, "float32")
+    assert tcache.length == 34
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_families_serve_the_jax_greedy_tokens(arch):
+    """f32 greedy serving, two waves of two 64-token prompts (the second
+    left-padded from 40), through the long prefill path; the VLM serves
+    its text backbone (the JAX server passes tokens only)."""
+    from repro.serve.engine import Request as JRequest
+    from repro.serve.engine import ServeEngine as JEngine
+    from repro_torch.serve.engine import Request, ServeEngine
+    jcfg, tcfg = _cfgs(arch, attn_chunk=16, attn_impl="flash")
+    jmodel, params = _jax_model(jcfg, seed=4)
+    tmodel = _port_model(tcfg, params)
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(1, tcfg.vocab_size, n, dtype=np.int32)
+               for n in (64, 64, 64, 40)]
+    new = [5, 3, 4, 6]
+    want = JEngine(jmodel, params, batch_size=2, max_len=80).generate(
+        [JRequest(prompt=p, max_new_tokens=m) for p, m in zip(prompts, new)])
+    got = ServeEngine(tmodel, batch_size=2, max_len=80).generate(
+        [Request(prompt=p, max_new_tokens=m) for p, m in zip(prompts, new)])
+    assert [len(r.generated) for r in got] == new
+    assert [r.generated for r in got] == [r.generated for r in want]
+
+
+def test_vlm_without_images_is_its_text_backbone():
+    _, tcfg = _cfgs("internvl2-2b")
+    model = build_model(tcfg, device="cpu",
+                        generator=torch.Generator().manual_seed(1))
+    assert model.vision_proj.w.shape == (tcfg.vlm_vision_dim, tcfg.d_model)
+    assert float(model.vision_proj.b.abs().max()) == 0.0
+    _, tb = _batches(tcfg, seed=10)
+    with_img, _, _ = model.forward(tb)
+    text, _, _ = model.forward({"tokens": tb["tokens"]})
+    n_img = tcfg.vlm_image_tokens
+    assert with_img.shape[1] == text.shape[1] + n_img
+    # The image tokens come first: the text's logits see them.
+    assert not torch.allclose(with_img[:, n_img:], text)
+    first, _, _ = model.forward({"tokens": tb["tokens"][:, :1]})
+    torch.testing.assert_close(first[:, 0], text[:, 0])
+
+
 def test_decoder_prefill_and_decode_with_cache():
     jcfg, tcfg = _cfgs("qwen2.5-3b", attn_chunk=16, attn_impl="flash")
     jmodel, params = _jax_model(jcfg, seed=1)
@@ -270,7 +370,7 @@ def test_cast_copy_follows_parameter_edits():
     assert float(p.w("scale", torch.bfloat16)[0]) == 3.0
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "deepseek-7b", *NEW_ARCHS])
 def test_count_params_matches_jax(arch):
     for get in ("get_smoke_config", "get_config"):
         want = jax_count(getattr(JC, get)(arch))
@@ -297,15 +397,20 @@ def test_init_rule_shapes_and_scales():
 
 
 def test_unported_archs_and_families_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TC.get_config("minicpm3-4b")
+    """MoE (qwen3-moe) and the encoder (hubert) are still to port; each
+    refusal names its ROADMAP item."""
+    for arch in ("qwen3-moe-30b-a3b", "qwen3-moe-235b-a22b",
+                 "hubert-xlarge"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, D3"):
+            TC.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         TC.get_smoke_config("gpt-5")
     _, tcfg = _cfgs("qwen2.5-3b")
-    for kw in ({"attn_type": "mla"}, {"n_experts": 4}, {"family": "vlm"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for kw in ({"n_experts": 4}, {"family": "moe", "n_experts": 4},
+               {"family": "moe"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, D3"):
             DecoderLM(dataclasses.replace(tcfg, **kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, D3"):
         build_model(dataclasses.replace(tcfg, family="encoder"),
                     device="cpu")
 

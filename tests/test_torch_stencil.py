@@ -276,3 +276,66 @@ def test_products_at_the_flush_boundary_match_xla(c, w):
     _bits_equal(want, got)
     # f32 rounding alone lifts every one of them to the smallest normal.
     assert np.float32(c) * np.float32(w) == TINY
+
+
+# ---------------------------------------------------------------------------
+# The residual flushes as XLA does
+# ---------------------------------------------------------------------------
+
+def _subnormal_update_grid() -> np.ndarray:
+    """34 x 66, every cell 1e-37 (normal), one interior cell raised by
+    5e-39: every update a sweep makes is subnormal, so XLA's residual is
+    0."""
+    a = np.full((34, 66), 1e-37, np.float32)
+    a[10, 20] += np.float32(5e-39)
+    return a
+
+
+def test_residual_flushes_a_subnormal_update():
+    a = _subnormal_update_grid()
+    js, ts = SPECS["jacobi5"]
+    assert float(J.residual(jnp.asarray(a), js)) == 0.0
+    assert float(T.residual(torch.from_numpy(a), ts)) == 0.0
+    # Without the flush the update is the raised cell's 5e-39.
+    v = T.apply_stencil(torch.from_numpy(a), ts)
+    raw = float((v - torch.from_numpy(a)).abs().max())
+    assert 0.0 < raw < TINY
+
+
+def test_run_converged_stops_where_the_reference_stops():
+    """tol=0: the first block's residual is 0 in both packages, so both
+    stop after one block of t = 8 sweeps (the port ran to max_iters)."""
+    from repro import engine as JE
+    from repro_torch import engine as TE
+    a = _subnormal_update_grid()
+    js, ts = SPECS["jacobi5"]
+    kw = dict(tol=0.0, max_iters=64, policy="rowchunk", t=8,
+              device="cpu_ref")
+    _, jn, jr = JE.run_converged(jnp.asarray(a), js, interpret=True, **kw)
+    tu, tn, tr = TE.run_converged(torch.from_numpy(a), ts, **kw)
+    assert (tn, tr) == (int(jn), float(jr)) == (8, 0.0)
+    assert torch.equal(tu, TE.run(torch.from_numpy(a), ts, policy="rowchunk",
+                                  iters=8, device="cpu_ref"))
+
+
+def test_served_residual_flushes_like_the_reference_server():
+    """One SolveServer request on the grid above realizes the JAX
+    server's iterations; the card's residual path (a sweep into a spare
+    buffer, here K2's plain version) flushes the same way."""
+    from repro.serve import SolveRequest as JRequest
+    from repro.serve import SolveServer as JServer
+    from repro_torch.serve import SolveRequest, SolveServer
+    from repro_torch.serve import solve as TSolve
+    a = _subnormal_update_grid()
+    kw = dict(tol=0.0, max_iters=64, t=8)
+    jreq, treq = JRequest(grid=jnp.asarray(a), **kw), SolveRequest(
+        grid=torch.from_numpy(a), **kw)
+    JServer(interpret=True).solve([jreq])
+    SolveServer(torch_device="cpu").solve([treq])
+    assert (treq.iters_done, treq.converged) == (jreq.iters_done,
+                                                 jreq.converged) == (8, True)
+    assert treq.residual == float(jreq.residual) == 0.0
+    key = treq.key
+    vs = torch.from_numpy(np.stack([a, a]))
+    got = TSolve._residuals(vs, key, torch.full_like(vs, float("nan")))
+    assert got.tolist() == [0.0, 0.0]
