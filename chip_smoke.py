@@ -240,8 +240,46 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     parameter count, peak memory, prefill and decode times (wall, and
     kernel time from ``torch.profiler``) and must give the same tokens on
     a second greedy run; the memory is freed between models;
-17. one JSON line listing the kernels, then the card's name and power
-    limit, then the result line.
+17. MoE serving at full width: ``qwen3-moe-30b-a3b`` (48 layers, 128
+    experts of ff 768, top 8, 32 heads of 128 over 4 KV heads: a GQA
+    group of 8) with its parameters stored in bf16 (``param_dtype``),
+    served as in phase 7: K8 must launch once a layer in the prefill
+    wave, all on the tensor-core kernel, and nothing else; each layer's
+    attention through K8 within the JAX package's bound (rtol 5e-2, atol
+    8e-2) of the jnp route's, fed either route's stream; layer 0's MoE at
+    full width on one group of 256 tokens in bf16 on the card within
+    2e-2 of max |out| of the same parameters and inputs on the CPU in
+    f32; ``moe_drop_frac`` at prefill (groups of 256) and at a decode
+    step (a group of 4 tokens at capacity 1) printed; times, peak memory
+    and the second greedy run as in phase 7;
+18. the encoder at full width: ``hubert-xlarge`` (48 layers, d 1280, 16
+    heads of 80, non-causal) on frames made from a seed (B 8, S 1024,
+    512 features; ``attn_chunk`` 512, so both routes take the long
+    path): the ``attn_impl="flash"`` forward must launch K8 once a layer
+    (hd 80, non-causal) and nothing else, each layer's attention within
+    the JAX package's bound of the jnp route's on both streams; then four
+    AdamW steps with remat ``"full"`` through ``make_train_step``, each
+    loss finite and no kernel launched (ms a step, peak memory, ce), and
+    one more under ``torch.profiler`` (its busy share and top kernels);
+19. training: ``python -m repro_torch.launch.train --arch qwen2.5-3b
+    --steps 20 --batch 8 --seq 128 --ckpt-every 20`` at full width and
+    depth (20 finite losses; ms a step, peak memory, ce each step), then
+    the same step in this process, three timed and one profiled (a
+    checkpoint of that state would not fit the time: the 2-layer state's
+    save and restore are timed below, with the disk's free space); at
+    full width and 2 layers, with deterministic algorithms: a run killed
+    once its step-5 checkpoint is on disk and resumed with ``--resume
+    auto`` must end in the uninterrupted run's state bit for bit (the
+    digest of every parameter and moment), the gradients at ``accum=2``
+    within 5e-2 of each tensor's largest at ``accum=1``, and a run whose
+    step raises once must restore, retry and end in the clean run's
+    state; K8 and K7 must refuse a gradient on the card; one AdamW step
+    of each family at full width and 2 layers (zamba2: 7, one group and
+    a tail layer) with finite loss and gradients; both training example
+    twins; no kernel launched by any of it;
+20. one JSON line listing the kernels, then the card's name and power
+    limit, then the result line. Each phase's seconds are printed as it
+    ends, and all of them before the JSON line.
 
 It imports nothing of JAX and nothing of the ``repro`` package, and exits
 non-zero without a card or outside a checkout of the repository.
@@ -267,7 +305,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch.cuda.is_available() is False; this script "
              "drives the CUDA kernels and needs a card")
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import backends, configs, engine  # noqa: E402
 from repro_torch.analysis.sweep import run_sweep  # noqa: E402
@@ -283,6 +322,9 @@ from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import stream  # noqa: E402
 from repro_torch.layers import basic  # noqa: E402
 from repro_torch.launch import access  # noqa: E402
+from repro_torch.train.checkpoint import state_digest  # noqa: E402
+from repro_torch.layers.moe import MoE, capacity, moe_ffn  # noqa: E402
+from repro_torch.models.base import ParamInit  # noqa: E402
 from repro_torch.launch.sweep_ab import cold_ms, cold_pairs  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
@@ -323,11 +365,17 @@ FLASH_SHAPES = [(2, 128, 4, 2, 32, True, 64), (1, 256, 8, 8, 16, True, 64),
                 (4, 2048, 16, 2, 128, True, 512),
                 (4, 2048, 32, 32, 112, True, 512),
                 (4, 2048, 16, 16, 80, False, 512),
-                (4, 2048, 32, 2, 128, True, 512)]
-# (H, K, hd) of a timed S=2048 shape -> the key of its stats: qwen2.5-3b's,
-# zamba2-7b's, hubert-xlarge's heads, chatglm3-6b's (a GQA group of 16)
-FLASH_TIMED = {(16, 2, 128): "hd128", (32, 32, 112): "hd112",
-               (16, 16, 80): "hd80", (32, 2, 128): "group16"}
+                (4, 2048, 32, 2, 128, True, 512),
+                (4, 2048, 32, 4, 128, True, 512),
+                (8, 1024, 16, 16, 80, False, 512)]
+# (B, S, H, K, hd) of a timed shape -> the key of its stats: qwen2.5-3b's,
+# zamba2-7b's, hubert-xlarge's heads at the serving wave's B and S,
+# chatglm3-6b's (a GQA group of 16), qwen3-moe-30b-a3b's (a group of 8)
+# and hubert-xlarge's at phase 18's B 8 and S 1024 (non-causal)
+FLASH_TIMED = {(4, 2048, 16, 2, 128): "hd128", (4, 2048, 32, 32, 112): "hd112",
+               (4, 2048, 16, 16, 80): "hd80", (4, 2048, 32, 2, 128): "group16",
+               (4, 2048, 32, 4, 128): "group8",
+               (8, 1024, 16, 16, 80): "hubert"}
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 CONV = ("K7", "src/repro_torch/csrc/conv1d.cu",
         "src/repro/kernels/conv1d.py:52")
@@ -1031,7 +1079,8 @@ def phase_flash(peaks, stats) -> None:
                   and bool(got.float().isfinite().all()) and worst <= tol,
                   f"K8 {label} {dname}: max |err| {err} over rtol=atol={tol}")
             s[dname]["max_abs_err"] = max(s[dname]["max_abs_err"], err)
-            if sq != PROMPT:
+            key = FLASH_TIMED.get((b, sq, h, kh, hd))
+            if key is None:
                 print(f"K8 {label:42s} {dname:8s} {route:9s} "
                       f"max|err|={err:.3e} (tol {tol:g})")
                 continue
@@ -1057,7 +1106,6 @@ def phase_flash(peaks, stats) -> None:
             print(f"K8 {label:42s} {dname:8s} {route:9s} max|err|={err:.3e} "
                   f"(tol {tol:g}) kernel_ms={k_ms:.6f} bound_ms={b_ms:.6f} "
                   f"({b_by}) sdpa_ms={lib_ms:.6f} plain_ms={p_ms:.6f}{extra}")
-            key = FLASH_TIMED[(h, kh, hd)]
             s[key][dname].update(shape=label, max_abs_err=err, **timed)
             if key == "hd128":
                 s[dname].update(timed)
@@ -1118,6 +1166,7 @@ def phase_serve(smi: str, stats) -> None:
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(False)
     torch.cuda.synchronize()
     print(f"random init of {sum(p.numel() for p in model.parameters())} "
           f"params in {time.perf_counter() - t0:.1f}s")
@@ -1257,6 +1306,7 @@ def phase_ssm(smi: str, stats) -> None:
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(False)
     torch.cuda.synchronize()
     print(f"random init of {sum(p.numel() for p in model.parameters())} "
           f"params in {time.perf_counter() - t0:.1f}s")
@@ -1366,6 +1416,7 @@ def phase_hybrid(smi: str, stats) -> None:
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(False)
     torch.cuda.synchronize()
     print(f"random init of {sum(p.numel() for p in model.parameters())} "
           f"params in {time.perf_counter() - t0:.1f}s")
@@ -2363,7 +2414,7 @@ def layer_attention_gaps(model, ref, walk, toks: torch.Tensor) -> list:
         want, _ = attention(layer.attn, h, pos, ref.cfg)
         gaps.append(excess(got, want)[1])
         del got, want, h
-        x, _ = layer(x, pos, cfg)
+        x = layer(x, pos, cfg)[0]
     return gaps
 
 
@@ -2417,7 +2468,7 @@ def gate_k8_routes(arch: str, model, eng, toks, got, stats) -> None:
           and bool(exact.isfinite().all()) and worst <= 8e-2,
           f"{arch}: the f32 prefill must launch the split-TF32 K8 once a "
           f"layer and agree with the jnp route")
-    key = FLASH_TIMED.get((cfg.n_heads, cfg.n_kv_heads, cfg.hd))
+    key = FLASH_TIMED.get((WAVE, PROMPT, cfg.n_heads, cfg.n_kv_heads, cfg.hd))
     if key == "group16":
         stats["flash"][key]["float32"].update(
             launches=cfg.n_layers,
@@ -2465,6 +2516,7 @@ def serve_decoder(arch: str, smi: str, stats) -> None:
     t0 = time.perf_counter()
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(False)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     check(n_params == cfg.n_params(), "params != count_params")
@@ -2504,7 +2556,8 @@ def serve_decoder(arch: str, smi: str, stats) -> None:
     if want_k8:
         path = f"ServeEngine.generate({arch}, flash)"
         stats["flash"].setdefault("paths", {})[path] = want_k8
-        key = FLASH_TIMED.get((cfg.n_heads, cfg.n_kv_heads, cfg.hd))
+        key = FLASH_TIMED.get((WAVE, PROMPT, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.hd))
         if key == "group16":
             stats["flash"][key]["bfloat16"].update(launches=want_k8,
                                                    path=path)
@@ -2542,6 +2595,543 @@ def phase_decoders(smi: str, stats) -> None:
         torch.cuda.empty_cache()
 
 
+MOE_ARCH, ENC_ARCH, TRAIN_ARCH = ("qwen3-moe-30b-a3b", "hubert-xlarge",
+                                  "qwen2.5-3b")
+ENC_B, ENC_S = 8, 1024
+# The bound of the full-width MoE layer on the card (bf16 compute, bf16
+# storage) against the same layer on the CPU in f32: max |diff| within
+# this share of the CPU output's largest magnitude (the outputs reach tens
+# at random init, so an absolute bound would not do).
+MOE_LAYER_SHARE = 2e-2
+# accum=2 against accum=1 (bf16 compute): each gradient tensor within
+# this share of its largest element.
+ACCUM_SHARE = 5e-2
+
+
+def moe_layer_vs_cpu(model, cfg) -> None:
+    """Layer 0's MoE at full width on one group of 256 tokens: on the card
+    in bf16 against the same parameters and inputs on the CPU in f32."""
+    layer = model.layers[0].ffn
+    g = torch.Generator("cuda").manual_seed(7)
+    x = torch.randn((1, 256, cfg.d_model), generator=g, device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        got, aux = moe_ffn(layer, x, cfg)
+        cpu_cfg = dataclasses.replace(cfg, dtype=torch.float32,
+                                      param_dtype=torch.float32)
+        cpu = MoE(ParamInit(cpu_cfg, device="meta"),
+                  cpu_cfg).to_empty(device="cpu").requires_grad_(False)
+        for name, p in cpu.named_parameters():
+            p.copy_(getattr(layer, name).float().cpu())
+        t0 = time.perf_counter()
+        want, want_aux = moe_ffn(cpu, x.float().cpu(), cpu_cfg)
+        cpu_s = time.perf_counter() - t0
+    diff = float((got.float().cpu() - want).abs().max())
+    share = diff / float(want.abs().max())
+    print(f"one MoE layer (group of 256 tokens, capacity "
+          f"{capacity(256, cfg)}), card bf16 vs CPU f32: max |diff| "
+          f"{diff:.6e} = {share:.3e} of max |cpu| (bound "
+          f"{MOE_LAYER_SHARE}), output range "
+          f"[{float(want.min()):.3f}, {float(want.max()):.3f}]; "
+          f"moe_drop_frac card {float(aux['moe_drop_frac']):.6f} cpu "
+          f"{float(want_aux['moe_drop_frac']):.6f}; lb {float(aux['moe_lb_loss']):.6f}"
+          f" / {float(want_aux['moe_lb_loss']):.6f}; the CPU layer {cpu_s:.1f}s")
+    check(bool(got.isfinite().all()) and share <= MOE_LAYER_SHARE,
+          f"the full-width MoE layer on the card is off the CPU f32 layer: "
+          f"{share} of max |cpu|")
+
+
+def phase_moe(smi: str, stats) -> None:
+    cfg = dataclasses.replace(configs.get_config(MOE_ARCH), attn_impl="flash",
+                              param_dtype=torch.bfloat16)
+    print(f"== phase 17: MoE serving, {cfg.name} at full width ({cfg.n_layers}"
+          f" layers, d {cfg.d_model}, {cfg.n_experts} experts of ff "
+          f"{cfg.d_ff}, top {cfg.experts_per_token}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads of {cfg.hd}), bf16 storage, "
+          f"attn_impl=flash, {WAVE} x {PROMPT} tokens + {NEW} new ==")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(False)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.n_params()
+          and all(p.dtype == torch.bfloat16 for p in model.parameters()),
+          "params != count_params, or not all stored in bf16")
+    print(f"random init of {n_params} params (bf16, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB) in "
+          f"{time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(0, cfg.vocab_size, size=(WAVE, PROMPT),
+                           dtype=np.int32)
+    eng = ServeEngine(model, batch_size=WAVE, max_len=PROMPT + NEW + 8)
+
+    def requests():
+        return [Request(prompt=p, max_new_tokens=NEW) for p in prompts]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    done = eng.generate(requests())
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    counts = all_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"launches: { {k: v for k, v in counts.items() if v} }")
+    check(counts["flash_attention"] == counts["flash_attention_wgmma"]
+          == cfg.n_layers and sum(counts.values()) == 2 * cfg.n_layers,
+          f"one prefill wave must launch K8 once a layer ({cfg.n_layers}), "
+          f"on the tensor-core kernel, and nothing else: {counts}")
+    path = f"ServeEngine.generate({MOE_ARCH}, flash)"
+    stats["flash"].setdefault("paths", {})[path] = cfg.n_layers
+    stats["flash"]["group8"]["bfloat16"].update(launches=cfg.n_layers,
+                                                path=path)
+    for i, r in enumerate(done):
+        check(len(r.generated) == NEW
+              and all(0 <= t < cfg.padded_vocab for t in r.generated),
+              f"request {i}: {len(r.generated)} tokens, ids {r.generated}")
+    print(f"req0 -> {done[0].generated[:8]} ...; every request got {NEW} "
+          f"tokens in [0, {cfg.padded_vocab})")
+    toks = torch.from_numpy(prompts.astype(np.int64)).cuda()
+    got, cache = eng._prefill(toks)
+    with torch.no_grad():
+        _, _, aux = model.forward({"tokens": toks}, model.init_cache(
+            WAVE, eng.max_len), last_only=True)
+        step = torch.from_numpy(np.asarray([[r.generated[0]] for r in done],
+                                           np.int64)).cuda()
+        _, _, daux = model.forward({"tokens": step}, cache)
+    print(f"moe_drop_frac: prefill {float(aux['moe_drop_frac']):.6f} (groups "
+          f"of {cfg.moe_group_size}, capacity {capacity(cfg.moe_group_size, cfg)}), "
+          f"decode step {float(daux['moe_drop_frac']):.6f} (a group of "
+          f"{WAVE} tokens, capacity {capacity(WAVE, cfg)}); lb "
+          f"{float(aux['moe_lb_loss']):.4f}, z {float(aux['moe_z_loss']):.4f}")
+    jnp_model = model.with_config(dataclasses.replace(cfg, attn_impl="jnp"))
+    for name, walk in (("flash", model), ("jnp", jnp_model)):
+        layer_gaps = layer_attention_gaps(model, jnp_model, walk, toks)
+        print(f"each layer's attention, flash vs jnp on the {name} route's "
+              f"stream: largest excess over 5e-2*|jnp| "
+              f"{max(layer_gaps):.4e} (atol 8e-2; layers "
+              f"{', '.join(f'{w:.2e}' for w in layer_gaps)})")
+        check(all(w <= 8e-2 for w in layer_gaps),
+              f"{MOE_ARCH}: a layer's attention through K8 off the jnp path "
+              f"on the {name} route's stream: {layer_gaps}")
+    moe_layer_vs_cpu(model, cfg)
+    print(f"params={n_params} on {smi}")
+    time_serving(eng, toks, cache, done, requests, first, peak, smi)
+
+
+@torch.no_grad()
+def encoder_attention_gaps(model, ref, walk, feats: torch.Tensor) -> list:
+    """Each encoder layer's attention through ``model`` (K8) against
+    ``ref`` (the jnp route), fed ``walk``'s stream. Returns the largest
+    excess over 5e-2 * |ref| per layer."""
+    from repro_torch.layers.attention import attention
+    cfg = walk.cfg
+    x = walk.feature_proj(feats, cfg.dtype)
+    b, s = feats.shape[:2]
+    pos = torch.arange(s, device=feats.device).expand(b, s)
+    gaps = []
+    for layer in walk.layers:
+        h = basic.layer_norm(layer.ln1, x, cfg.norm_eps)
+        got, _ = attention(layer.attn, h, pos, model.cfg)
+        want, _ = attention(layer.attn, h, pos, ref.cfg)
+        gaps.append(excess(got, want)[1])
+        del got, want, h
+        x = layer(x, pos, cfg)
+    return gaps
+
+
+def timed_steps(step, state, batch, n: int):
+    """``n`` train steps on ``batch``: (state, ce of each, ms of each)."""
+    ces, ms = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        ces.append(float(metrics["ce"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return state, ces, ms
+
+
+def profile_step(label: str, step, state, batch, wall: float) -> None:
+    """Where one train step's device time goes: its kernels' total against
+    the median wall ``wall`` of the steps just timed, and the kernels with
+    the most time (the profiled call takes one more step)."""
+    kernels = top_kernels(lambda: step(state, batch), n=1 << 30)
+    dev = sum(ms for _, ms, _ in kernels)
+    print(f"{label}: one step's kernels {dev:.3f} ms in "
+          f"{sum(n for _, _, n in kernels)} kernels (busy {dev / wall:.1%} "
+          f"of the median step wall {wall:.1f} ms); the kernels with the "
+          f"most device time:")
+    for name, ms, count in kernels[:8]:
+        print(f"  {ms:10.3f} ms {count:5d}x  {name[:100]}")
+
+
+def phase_encoder(smi: str, stats) -> None:
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainstep import init_state, make_train_step
+    # S 1024 is not past the config's attn_chunk of 1024, where both
+    # packages attend in one block and K8 never runs. The forward's gates
+    # cut attn_chunk to 512, so both routes take the long path; the AdamW
+    # steps run at the config's own attn_chunk.
+    own = configs.get_config(ENC_ARCH)
+    cfg = dataclasses.replace(own, attn_chunk=512)
+    print(f"== phase 18: the encoder, {cfg.name} at full width "
+          f"({cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.hd}, non-causal), frames B {ENC_B} x S {ENC_S} x "
+          f"{cfg.audio_feat_dim}, attn_chunk {cfg.attn_chunk} for the "
+          f"forward's gates, {own.attn_chunk} for the AdamW steps ==")
+    model = build_model(own, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.n_params(), "params != count_params")
+    jnp_model = model.with_config(cfg)
+    g = torch.Generator("cuda").manual_seed(8)
+    batch = {"features": torch.randn((ENC_B, ENC_S, cfg.audio_feat_dim),
+                                     generator=g, device="cuda"),
+             "labels": torch.randint(0, cfg.vocab_size, (ENC_B, ENC_S),
+                                     generator=g, device="cuda")}
+    flash_model = model.with_config(dataclasses.replace(cfg,
+                                                        attn_impl="flash"))
+    reset_all_launches()
+    with torch.no_grad():
+        logits, _, _ = flash_model.forward(batch)
+    torch.cuda.synchronize()
+    counts = all_launches()
+    print(f"{n_params} params; the flash forward's launches: "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    check(logits.shape == (ENC_B, ENC_S, cfg.padded_vocab)
+          and bool(logits.isfinite().all())
+          and counts["flash_attention"] == counts["flash_attention_wgmma"]
+          == cfg.n_layers and sum(counts.values()) == 2 * cfg.n_layers,
+          f"the encoder's flash forward must launch K8 (hd 80, non-causal) "
+          f"once a layer and nothing else: {counts}")
+    path = f"{ENC_ARCH}.forward(flash, B={ENC_B}, S={ENC_S})"
+    stats["flash"].setdefault("paths", {})[path] = cfg.n_layers
+    stats["flash"]["hubert"]["bfloat16"].update(launches=cfg.n_layers,
+                                                path=path)
+    for name, walk in (("flash", flash_model), ("jnp", jnp_model)):
+        gaps = encoder_attention_gaps(flash_model, jnp_model, walk,
+                                      batch["features"])
+        print(f"each layer's attention, flash vs jnp on the {name} route's "
+              f"stream: largest excess over 5e-2*|jnp| {max(gaps):.4e} "
+              f"(atol 8e-2)")
+        check(all(w <= 8e-2 for w in gaps),
+              f"{ENC_ARCH}: a layer's attention through K8 off the jnp path "
+              f"on the {name} route's stream: {gaps}")
+    with torch.no_grad():
+        want, _, _ = jnp_model.forward(batch)
+    err, worst = excess(logits, want)
+    print(f"frame logits, flash vs jnp: max |diff| {err:.6e}, largest excess "
+          f"over rtol*|jnp| {worst:.6e} (printed, not gated)")
+    del logits, want
+    opt = O.adamw(O.warmup_cosine(1e-4, 1, 10))
+    step = make_train_step(model, opt)
+    state = init_state(model, opt)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    state, ces, ms = timed_steps(step, state, batch, 4)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"AdamW with remat {own.remat}: ce {', '.join(f'{c:.4f}' for c in ces)}; "
+          f"ms a step {', '.join(f'{m:.1f}' for m in ms)} (first includes "
+          f"the moments' allocation); peak {peak:.2f} GiB; kernel launches "
+          f"{sum(all_launches().values())}; on {smi}")
+    check(all(np.isfinite(ces)) and sum(all_launches().values()) == 0,
+          "the encoder's training steps must give finite losses and launch "
+          "no kernel")
+    profile_step(f"{ENC_ARCH} AdamW step", step, state, batch,
+                 float(np.median(ms[1:])))
+
+
+def full_width_profile() -> None:
+    """The CLI's step in this process (qwen2.5-3b at full width, AdamW with
+    its schedule, a batch of 8 x 128 from the synthetic corpus): two steps
+    timed, then one profiled."""
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.data import DataConfig, make_pipeline
+    from repro_torch.train.trainstep import init_state, make_train_step
+    cfg = configs.get_config(TRAIN_ARCH)
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    opt = O.adamw(O.warmup_cosine(3e-3, 3, 20))
+    step = make_train_step(model, opt)
+    b = next(make_pipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=128,
+                                      global_batch=8)).batches())
+    batch = {k: torch.from_numpy(b[k]).long().cuda()
+             for k in ("tokens", "labels")}
+    state, _, ms = timed_steps(step, init_state(model, opt), batch, 3)
+    profile_step(f"{TRAIN_ARCH} at full width, AdamW step", step, state,
+                 batch, float(np.median(ms[1:])))
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_cli(*args: str, ckpt: str, **popen) -> subprocess.Popen:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--batch", "8", "--seq", "128", "--steps", "20",
+         "--ckpt-dir", ckpt, *args], cwd=ROOT, env=env, text=True, **popen)
+
+
+def run_cli(*args: str, ckpt: str, timeout: int = 600) -> str:
+    proc = train_cli(*args, ckpt=ckpt, stdout=subprocess.PIPE,
+                     stderr=subprocess.PIPE)
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0, f"launch.train {args} exited "
+          f"{proc.returncode}: {err[-2000:]}")
+    return out
+
+
+def cli_numbers(out: str):
+    steps = [line for line in out.splitlines() if line.startswith("step ")]
+    ces = [float(line.split("ce=")[1].split()[0]) for line in steps]
+    ms = [float(line.split()[-2]) for line in steps]
+    digest = [line for line in out.splitlines()
+              if line.startswith("state digest=")][0].split("=")[1]
+    return ces, ms, digest
+
+
+def layer_cfg(arch: str):
+    """Full width, cut to 2 layers (zamba2: one group of its period behind
+    the shared block, and one tail layer)."""
+    cfg = configs.get_config(arch)
+    layers = cfg.hybrid_period + 1 if cfg.family == "hybrid" else 2
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def family_batch(cfg, seed: int, b: int = 2, s: int = 256) -> dict:
+    g = torch.Generator("cuda").manual_seed(seed)
+    batch = {"labels": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                     device="cuda")}
+    if cfg.family == "encoder":
+        batch["features"] = torch.randn((b, s, cfg.audio_feat_dim),
+                                        generator=g, device="cuda")
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (b, s),
+                                        generator=g, device="cuda")
+    if cfg.family == "vlm":
+        batch["image_embeds"] = torch.randn(
+            (b, cfg.vlm_image_tokens, cfg.vlm_vision_dim), generator=g,
+            device="cuda")
+    return batch
+
+
+def train_families(smi: str) -> None:
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.trainstep import init_state, loss_and_grads
+    for arch in ("qwen2.5-3b", "chatglm3-6b", "minicpm3-4b", "internvl2-2b",
+                 MOE_ARCH, "mamba2-2.7b", "zamba2-7b", ENC_ARCH,
+                 "deepseek-7b"):
+        cfg = layer_cfg(arch)
+        model = build_model(cfg, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+        opt = O.adamw(1e-4)
+        state = init_state(model, opt)
+        batch = family_batch(cfg, seed=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics, grads = loss_and_grads(model, state.params, batch)
+        finite = all(bool(g.isfinite().all()) for g in grads.values())
+        opt.update_(grads, state.opt_state, state.params)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        n = sum(p.numel() for p in model.parameters())
+        print(f"{arch:20s} {cfg.n_layers} layers, {n} params: one AdamW step "
+              f"{ms:.1f} ms, ce {float(metrics['ce']):.4f}, grads finite "
+              f"{finite}"
+              + (f", moe_drop_frac {float(metrics['moe_drop_frac']):.4f}"
+                 if "moe_drop_frac" in metrics else ""))
+        check(finite and bool(np.isfinite(float(metrics["ce"])))
+              and all(p.isfinite().all() for p in state.params.values()),
+              f"{arch}: a training step's loss, grads or parameters are not "
+              f"finite")
+        del model, state, grads, metrics
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def checkpoint_rates(state, ckpt_dir: str) -> None:
+    """Time a synchronous checkpoint of ``state`` (the host copy and the
+    write) and its restore, and price a full-width state by them."""
+    import shutil
+    from repro_torch.train import checkpoint as ckpt
+    t0 = time.perf_counter()
+    path = pathlib.Path(ckpt.save(ckpt_dir, 0, state))
+    save_s = time.perf_counter() - t0
+    gb = sum(f.stat().st_size for f in path.iterdir()) / 1e9
+    t0 = time.perf_counter()
+    ckpt.restore(ckpt_dir, 0, state)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    full = configs.get_config(TRAIN_ARCH).n_params() * 12 / 1e9
+    print(f"a synchronous checkpoint of this state: {gb:.2f} GB saved in "
+          f"{save_s:.1f} s ({gb / save_s:.2f} GB/s with the host copy), "
+          f"restored in {load_s:.1f} s ({gb / load_s:.2f} GB/s); "
+          f"{shutil.disk_usage(ckpt_dir).free / 1e9:.1f} GB free on its "
+          f"disk; a full-width {TRAIN_ARCH} state (f32 params and two "
+          f"moments, {full:.1f} GB) would take ~{full * save_s / gb:.0f} s "
+          f"to save")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def train_gates(tmp: str) -> None:
+    """At full width and 2 layers: accumulation, an injected failure and
+    K8/K7's refusal of a gradient on the card."""
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.fault import FaultConfig, FaultTolerantRunner
+    from repro_torch.train.trainstep import (init_state, loss_and_grads,
+                                             make_train_step)
+    cfg = layer_cfg(TRAIN_ARCH)
+    # Deterministic algorithms: the embedding's backward otherwise sums
+    # with atomics, and two runs of the same steps may differ in the
+    # last bits. The variable below only satisfies the mode's check:
+    # cuBLAS fixed its workspace when earlier phases made its handles.
+    # cuBLAS is deterministic here because every step runs on one stream
+    # (launch.train sets the variable before any work on the card).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(3))
+    params = dict(model.named_parameters())
+    batch = family_batch(cfg, seed=4, b=8, s=128)
+    _, g1 = loss_and_grads(model, params, batch, 1)
+    _, g2 = loss_and_grads(model, params, batch, 2)
+    shares = {k: float((g1[k] - g2[k]).abs().max() / g1[k].abs().max())
+              for k in g1}
+    name = max(shares, key=shares.get)
+    print(f"accum=2 vs accum=1 ({TRAIN_ARCH}, {cfg.n_layers} layers, batch "
+          f"8 x 128): largest max|diff| / max|g| {shares[name]:.3e} "
+          f"({name}; bound {ACCUM_SHARE})")
+    check(shares[name] <= ACCUM_SHARE, "accum=2 is off accum=1")
+    del g1, g2
+
+    opt = O.adamw(1e-4)
+    data = [family_batch(cfg, seed=10 + i, b=8, s=128) for i in range(5)]
+    step = make_train_step(model, opt)
+    clean = FaultTolerantRunner(step, init_state(model, opt), FaultConfig(
+        ckpt_dir=os.path.join(tmp, "clean"), ckpt_every=100)).run(data, 5)
+    want = state_digest(clean)
+    checkpoint_rates(clean, os.path.join(tmp, "timed"))
+    del clean
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(3))
+    inner = make_train_step(model, opt)
+    left = [1]
+
+    def flaky(state, batch):
+        if int(state.opt_state.step) == 3 and left[0]:
+            left[0] -= 1
+            raise RuntimeError("injected device failure")
+        return inner(state, batch)
+
+    runner = FaultTolerantRunner(flaky, init_state(model, opt), FaultConfig(
+        ckpt_dir=os.path.join(tmp, "flaky"), ckpt_every=2))
+    got = state_digest(runner.run(data, 5))
+    print(f"an injected failure at step 3 (checkpoint of step 2 restored, "
+          f"the step retried): restores {runner.restores}, final state "
+          f"digest {got} vs the clean run's {want}")
+    check(runner.restores == 1 and got == want,
+          "the run with an injected failure must end in the clean run's state")
+    torch.use_deterministic_algorithms(False)
+    del runner, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    q = torch.randn((1, 256, 4, 80), device="cuda", requires_grad=True)
+    k = torch.randn((1, 256, 4, 80), device="cuda")
+    x = torch.randn((1, 64, 32), device="cuda")
+    w = torch.randn((4, 32), device="cuda", requires_grad=True)
+    refused = []
+    reset_all_launches()
+    for what, fn in (("K8", lambda: flash.flash_attention_local(q, k, k)),
+                     ("K7", lambda: conv.conv1d_depthwise_causal(x, w))):
+        try:
+            fn()
+        except flash.GradientError:
+            refused.append(what)
+    print(f"under grad on the card, refused: {refused}; launches "
+          f"{sum(all_launches().values())}")
+    check(refused == ["K8", "K7"] and sum(all_launches().values()) == 0,
+          "K8 and K7 must refuse a gradient on the card before launching")
+
+
+def phase_train(smi: str, stats) -> None:
+    import shutil
+    import tempfile
+    print(f"== phase 19: training, {TRAIN_ARCH} through launch.train at full "
+          f"width, accumulation, resume and failure gates at 2 layers, one "
+          f"step of each family, the example twins ==")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    reset_all_launches()
+    # Full width and depth, the reference launcher's defaults. A checkpoint
+    # of this state (params + two moments, ~37 GB) would take about a
+    # minute to write, and three exceed the disk: checkpoints are gated at
+    # 2 layers below.
+    out = run_cli("--ckpt-every", "20", ckpt=os.path.join(tmp, "full"),
+                  timeout=900)
+    ces, ms, _ = cli_numbers(out)
+    print("\n".join(line for line in out.splitlines()
+                    if not line.startswith("state digest")))
+    check(len(ces) == 20 and all(np.isfinite(ces)),
+          f"the full-width run must report 20 finite losses: {ces}")
+    full_width_profile()
+
+    gate = ("--layers", "2", "--deterministic")
+    # The uninterrupted run and the run to kill go side by side (each is
+    # deterministic alone); the resumed run follows the kill.
+    whole = train_cli(*gate, "--ckpt-every", "20",
+                      ckpt=os.path.join(tmp, "a"), stdout=subprocess.PIPE,
+                      stderr=subprocess.PIPE)
+    ckpt_b = os.path.join(tmp, "b")
+    first = pathlib.Path(ckpt_b) / "step_00000005"
+    child = train_cli(*gate, "--ckpt-every", "5", ckpt=ckpt_b,
+                      stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    t0 = time.perf_counter()
+    while not first.exists() and child.poll() is None \
+            and time.perf_counter() - t0 < 600:
+        time.sleep(0.01)
+    child.kill()
+    child.wait()
+    out, err = whole.communicate(timeout=600)
+    check(whole.returncode == 0, f"launch.train {gate} exited "
+          f"{whole.returncode}: {err[-2000:]}")
+    full = cli_numbers(out)
+    check(first.exists(), "the run to kill wrote no checkpoint")
+    resumed = run_cli(*gate, "--ckpt-every", "20", "--resume", "auto",
+                      ckpt=ckpt_b)
+    again = cli_numbers(resumed)
+    from_step = [line for line in resumed.splitlines()
+                 if line.startswith("resumed from step")]
+    print(f"killed after its checkpoint of step 5 appeared; {from_step}; "
+          f"resumed digest {again[2]} vs uninterrupted {full[2]}; resumed "
+          f"ce {again[0]} vs {full[0][-len(again[0]):]}")
+    check(bool(from_step) and again[2] == full[2],
+          "the resumed run must end in the uninterrupted run's state "
+          "(deterministic algorithms)")
+    train_gates(tmp)
+    train_families(smi)
+    t0 = time.perf_counter()
+    runs = {example: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{example}",
+         *(["--ckpt-dir", os.path.join(tmp, "ft")]
+           if example.startswith("fault") else [])],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for example in ("train_lm", "fault_tolerant_training")}
+    for example, proc in runs.items():
+        out, err = proc.communicate(timeout=600)
+        print(f"examples.{example}: exit {proc.returncode} (both side by "
+              f"side in {time.perf_counter() - t0:.1f}s); "
+              f"{out.strip().splitlines()[-1] if out else ''}")
+        check(proc.returncode == 0, f"{example} failed: {err[-2000:]}")
+    check(sum(all_launches().values()) == 0,
+          f"training launched a kernel: {all_launches()}")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> None:
     smi, peaks = card()
     print(f"== phase 1: card: {smi} ==")
@@ -2554,29 +3144,36 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     stats: dict = {}
-    phase_kernels(peaks, stats)
-    phase_subnormals()
-    phase_main(smi, stats)
-    phase_paths(stats)
-    phase_flash(peaks, stats)
-    phase_serve(smi, stats)
-    gc.collect()  # phase 7's model, so phase 9's peak memory is its own
-    torch.cuda.empty_cache()
-    phase_conv(peaks, stats)
-    phase_ssm(smi, stats)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_stream(peaks, stats, smi)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_hybrid(smi, stats)
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_solve_serve(smi, stats)
-    phase_dist(smi, stats)
-    phase_grayskull(smi, stats)
-    phase_jacobi(smi, stats)
-    phase_decoders(smi, stats)
+    seconds = {}
+
+    def run(name, fn, *args, free=False):
+        t0 = time.perf_counter()
+        fn(*args)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        print(f"-- {name}: {seconds[name]} s --")
+        if free:  # this phase's model, so the next phase's peak is its own
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    run("phase 3 kernels", phase_kernels, peaks, stats)
+    run("phase 3 subnormals", phase_subnormals)
+    run("phase 4 main path", phase_main, smi, stats)
+    run("phase 5 paths", phase_paths, stats)
+    run("phase 6 flash", phase_flash, peaks, stats)
+    run("phase 7 qwen2.5 serving", phase_serve, smi, stats, free=True)
+    run("phase 8 conv", phase_conv, peaks, stats)
+    run("phase 9 mamba2 serving", phase_ssm, smi, stats, free=True)
+    run("phase 10 stream", phase_stream, peaks, stats, smi, free=True)
+    run("phase 11 zamba2 serving", phase_hybrid, smi, stats, free=True)
+    run("phase 12 solve serving", phase_solve_serve, smi, stats)
+    run("phase 13 distributed", phase_dist, smi, stats)
+    run("phase 14 grayskull", phase_grayskull, smi, stats)
+    run("phase 15 jacobi", phase_jacobi, smi, stats)
+    run("phase 16 decoders", phase_decoders, smi, stats, free=True)
+    run("phase 17 moe serving", phase_moe, smi, stats, free=True)
+    run("phase 18 encoder", phase_encoder, smi, stats, free=True)
+    run("phase 19 training", phase_train, smi, stats, free=True)
+    print(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
         s = stats[policy]
@@ -2605,10 +3202,13 @@ def main() -> None:
             **({"paths": {s["path"]: s["launches"], **s["paths"]}}
                if dname == "bfloat16" else {}),
             # zamba2-7b's serving shape (its launches from phase 11),
-            # hubert-xlarge's heads (no path of the port runs them yet) and
-            # chatglm3-6b's group of 16 (its launches from phase 16)
+            # hubert-xlarge's heads at the serving wave's shape (no path
+            # runs that shape), chatglm3-6b's group of 16 (phase 16),
+            # qwen3-moe-30b-a3b's group of 8 (phase 17) and hubert-xlarge's
+            # at phase 18's shape (its flash forward)
             **{key: {"launches": 0, **s[key][dname]}
-               for key in ("hd112", "hd80", "group16")}})
+               for key in ("hd112", "hd80", "group16", "group8",
+                           "hubert")}})
     kid, source, replaces = CONV
     s = stats["conv1d"]
     kernels.append({

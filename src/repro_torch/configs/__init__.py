@@ -1,8 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here.
 
-Only the archs whose model family the port runs are listed in
-:data:`ARCHS`; the reference's other archs raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+Every arch of the reference is listed; qwen3-moe-235b-a22b's full
+config fits no single card (its module says where it runs).
 """
 from __future__ import annotations
 
@@ -16,24 +15,13 @@ ARCHS = {
     "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
     "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
-}
-
-#: The reference's archs that the port does not run yet, and why.
-NOT_PORTED = {
-    "hubert-xlarge": "the encoder family (models/encoder.py) and its "
-                     "entry point",
-    "qwen3-moe-30b-a3b": "the MoE family (layers/moe.py) and a way to hold "
-                         "its 30.5 B parameters on one card",
-    "qwen3-moe-235b-a22b": "the MoE family (layers/moe.py); at full width "
-                           "it does not fit one card",
+    "hubert-xlarge": "repro_torch.configs.hubert_xlarge",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "qwen3-moe-235b-a22b": "repro_torch.configs.qwen3_moe_235b_a22b",
 }
 
 
 def _module(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} needs {NOT_PORTED[name]}, not ported yet "
-            f"(ROADMAP Queue 1, D3); ported: {sorted(ARCHS)}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; one of {sorted(ARCHS)}")
     return importlib.import_module(ARCHS[name])

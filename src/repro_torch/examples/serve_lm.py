@@ -24,6 +24,7 @@ def main(argv=None) -> None:
     cfg = configs.get_smoke_config(args.arch)
     model = build_model(cfg, device=args.device,
                         generator=torch.Generator(args.device).manual_seed(0))
+    model.requires_grad_(False)
 
     rng = np.random.default_rng(0)
     requests = [Request(prompt=rng.integers(0, cfg.vocab_size, 12,

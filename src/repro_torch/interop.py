@@ -13,15 +13,20 @@ grid. Both cross as plain data, so the port never imports ``repro`` or
   same bits.
 
 An LM's state is its parameter tree. :func:`lm_params_from_jax` takes a
-JAX LM's tree (``DecoderLM``, ``MambaLM`` or ``HybridLM``) as numpy
-arrays and loads it into the port's model for the config's family: the
-stacked ``layers`` leaves with their leading ``n_layers`` axis, or a
+JAX model's tree (``DecoderLM``, ``MambaLM``, ``HybridLM`` or
+``EncoderModel``) as numpy arrays and loads it into the port's model for
+the config's family: the stacked ``layers`` leaves with their leading
+``n_layers`` axis (MoE's expert slabs ``(L, E, d, f)`` among them), or a
 hybrid's ``groups`` leaves stacked ``(n_groups, period, ...)`` and
 ``tail`` leaves ``(n_tail, ...)``, plus the unstacked rest (``embedding``,
-``ln_f``, the VLM's ``vision_proj``, the hybrid's ``shared_*``); MLA's
-projections (``q_down``, ``q_norm``, ..., ``wo``) ride in ``layers`` under
-``attn`` as GQA's do. Both store f32, so the load is exact.
-:func:`load_params` loads one module from a nested dict.
+``ln_f``, the VLM's ``vision_proj``, the hybrid's ``shared_*``, the
+encoder's ``feature_proj`` and ``head``); MLA's projections (``q_down``,
+``q_norm``, ..., ``wo``) ride in ``layers`` under ``attn`` as GQA's do.
+A bf16 leaf arrives as ``ml_dtypes`` and is widened to f32 and narrowed
+to the parameter's dtype: both exact. :func:`load_params` loads one
+module from a nested dict. :func:`train_state_from_jax` carries a whole
+train state, parameters and the optimizer's ``(step, mu, nu)``, so a
+JAX run can continue in the port.
 """
 from __future__ import annotations
 
@@ -73,14 +78,11 @@ def _load_flat(module: torch.nn.Module, flat: dict) -> torch.nn.Module:
                        f"{sorted(set(flat) - set(named))}")
     with torch.no_grad():
         for name, arr in flat.items():
-            arr = np.asarray(arr)
-            if arr.dtype.name == "bfloat16":
-                arr = arr.astype(np.float32)
             p = named[name]
-            if tuple(arr.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {arr.shape} != "
+            if tuple(np.shape(arr)) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {np.shape(arr)} != "
                                  f"{tuple(p.shape)}")
-            p.copy_(torch.tensor(arr))  # copies: jax arrays are read-only
+            p.copy_(_tensor(arr, p.dtype, p.device))  # copies: jax arrays are read-only
     return module
 
 
@@ -102,19 +104,69 @@ def _stacked_axes(cfg) -> dict:
     return {"layers": ("n_layers", (cfg.n_layers,))}
 
 
-def lm_params_from_jax(params: dict, cfg, *, device="cuda"):
-    """The port's model for ``cfg`` holding the JAX parameter tree
-    ``params`` (numpy leaves; stacked subtrees as the module note says)."""
-    from repro_torch.models.registry import build_model
+def port_names(tree: dict, cfg) -> dict:
+    """The JAX model tree ``tree`` (parameters, or an optimizer moment of
+    their structure) flattened to the port's parameter names, the
+    stacked subtrees split per layer."""
     stacked = _stacked_axes(cfg)
-    flat = dict(_flatten({k: v for k, v in params.items()
+    flat = dict(_flatten({k: v for k, v in tree.items()
                           if k not in stacked}))
     for key, (what, lead) in stacked.items():
-        for name, arr in _flatten(params.get(key, {})):
+        for name, arr in _flatten(tree.get(key, {})):
             if tuple(arr.shape[:len(lead)]) != lead:
                 raise ValueError(f"{key}.{name}: leading axes "
                                  f"{tuple(arr.shape[:len(lead)])} != {what} "
                                  f"{lead}")
             for idx in np.ndindex(*lead):
                 flat[".".join((key, *map(str, idx), name))] = arr[idx]
-    return _load_flat(build_model(cfg, device=require_device(device)), flat)
+    return flat
+
+
+def lm_params_from_jax(params: dict, cfg, *, device="cuda"):
+    """The port's model for ``cfg`` holding the JAX parameter tree
+    ``params`` (numpy leaves; stacked subtrees as the module note says)."""
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg, device=require_device(device))
+    return _load_flat(model, port_names(params, cfg))
+
+
+def _tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
+    """A copy of ``arr`` (bf16 widened to f32 first: exact) in ``dtype``
+    on ``device``."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        arr = arr.astype(np.float32)
+    return torch.tensor(arr).to(device=device, dtype=dtype)
+
+
+def train_state_from_jax(state, cfg, *, device="cuda"):
+    """``(model, TrainState)`` in the port from a JAX ``TrainState`` of
+    numpy leaves (``params``, ``opt_state = OptState(step, mu, nu)``).
+
+    The port's state holds the model's own parameters (see
+    ``train.trainstep``); ``mu`` and ``nu`` (``None`` for lion and sgd)
+    are keyed by the port's parameter names, in the JAX moments' own
+    dtype.
+    """
+    from repro_torch.train.optimizer import OptState
+    from repro_torch.train.trainstep import TrainState
+    params, opt = state
+    model = lm_params_from_jax(params, cfg, device=device)
+    named = dict(model.named_parameters())
+
+    def moments(tree):
+        if tree is None:
+            return None
+        flat = port_names(tree, cfg)
+        if set(flat) != set(named):
+            raise KeyError("optimizer moments and parameters differ in "
+                           "names")
+        return {name: _tensor(arr, torch.bfloat16
+                              if np.asarray(arr).dtype.name == "bfloat16"
+                              else torch.float32, model.device)
+                for name, arr in flat.items()}
+
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32,
+                        device=model.device)
+    return model, TrainState(named, OptState(step, moments(opt.mu),
+                                             moments(opt.nu)))

@@ -19,11 +19,18 @@ time chunk (``_pick_bl``): a block's tile of time steps, which does not
 change the result.
 
 :data:`LAUNCHES` counts kernel launches (never the plain version).
+
+Forward only, as the reference's Pallas kernel is: with grad enabled and
+any input requiring grad, :func:`conv1d_depthwise_causal` raises on
+either device before it dispatches. Training takes the plain conv
+(``ssm_conv_impl="jnp"``).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import refuse_grad
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
 LAUNCHES: dict[str, int] = {"conv1d": 0}
@@ -117,7 +124,9 @@ def conv1d_depthwise_causal(x: torch.Tensor, w: torch.Tensor,
     """Depthwise causal conv: x (B, L, D), w (K, D), b (D,) -> (B, L, D).
 
     Single-device kernel (``ops.conv1d`` is the public entry).
+    Forward only: raises ``GradientError`` when asked for a gradient.
     """
+    refuse_grad("the depthwise causal conv (K7)", x, w, b)
     _check(x, w, b)
     if bl < 1:
         raise ValueError(f"bl must be positive; got {bl}")

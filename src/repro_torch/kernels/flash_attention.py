@@ -34,7 +34,11 @@ shape the plain version, and all keep the reference's precondition that
 they divide the sequence lengths. Both kernels are held to the plain
 version within 2e-5 in f32 and 3e-2 in bf16.
 
-Forward only (serving prefill needs no gradient). :data:`LAUNCHES`
+Forward only, as the reference's Pallas kernel is: with grad enabled and
+any input requiring grad, :func:`flash_attention_local` raises on either
+device before it dispatches (the reference's ``jax.grad`` through
+``pallas_call`` fails too). Training takes ``attn_impl="jnp"``, the
+plain chunked attention, which autograd differentiates. :data:`LAUNCHES`
 counts kernel launches (never the plain version): ``flash_attention``
 every launch of either kernel, ``flash_attention_wgmma`` those of the
 bf16 kernel, ``flash_attention_tf32`` those of the f32 kernel.
@@ -57,6 +61,21 @@ HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)
 MAX_GROUP = 64
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+class GradientError(RuntimeError):
+    """A forward-only kernel was asked for a gradient."""
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise :class:`GradientError` when grad is enabled and any of
+    ``tensors`` requires grad: the kernel has no backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise GradientError(
+            f"{what} is forward-only, as the reference's Pallas kernel is: "
+            f"it has no backward. Run it under torch.no_grad(), or train "
+            f"through the plain path (attn_impl='jnp', ssm_conv_impl='jnp')")
 
 
 def reset_launch_counts() -> None:
@@ -170,7 +189,9 @@ def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, H, hd); k/v: (B, Sk, K, hd); H = K*g. Returns (B,Sq,H,hd).
 
     Single-device kernel (``ops.flash_attention`` is the public entry).
+    Forward only: raises :class:`GradientError` when asked for a gradient.
     """
+    refuse_grad("flash attention (K8)", q, k, v)
     _blocks(q, k, v, bq, bk)
     if q.device.type == "cpu":
         return flash_attention_local_plain(q, k, v, causal=causal, bq=bq,

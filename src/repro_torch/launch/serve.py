@@ -41,9 +41,13 @@ def main(argv=None) -> None:
 
     cfg = (configs.get_smoke_config(args.arch) if args.smoke
            else configs.get_config(args.arch))
+    if cfg.family == "encoder":
+        ap.error(f"{args.arch} is encoder-only: it has no decode step to "
+                 f"serve")
     dev = require_device(args.device)
     model = build_model(cfg, device=dev,
                         generator=torch.Generator(dev).manual_seed(args.seed))
+    model.requires_grad_(False)
 
     rng = np.random.default_rng(args.seed)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab_size,

@@ -1,4 +1,4 @@
-"""Norms, MLP, embedding (twin of ``repro.layers.basic``).
+"""Norms, MLPs, embedding (twin of ``repro.layers.basic``).
 
 Each function takes ``p``, the module that holds its parameters, where
 the reference takes a parameter dict; the modules' ``forward`` calls the
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.models.base import ModelConfig, ParamInit, Params
 
@@ -29,6 +30,26 @@ def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
     return (y * p.scale.to(torch.float32)).to(x.dtype)
 
 
+class LayerNorm(Params):
+    def __init__(self, init: ParamInit, dim: int):
+        super().__init__()
+        self.scale = init.ones((dim,))
+        self.bias = init.zeros((dim,))
+
+    def forward(self, x: torch.Tensor, eps: float) -> torch.Tensor:
+        return layer_norm(self, x, eps)
+
+
+def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    c = xf - mu
+    var = torch.mean(c * c, dim=-1, keepdim=True)
+    y = c * torch.rsqrt(var + eps)
+    y = y * p.scale.to(torch.float32) + p.bias.to(torch.float32)
+    return y.to(x.dtype)
+
+
 class SwiGLU(Params):
     def __init__(self, init: ParamInit, d: int, f: int,
                  d_out: int | None = None):
@@ -47,6 +68,44 @@ def swiglu(p: SwiGLU, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     u = x @ p.w("up", dt)
     h = F.silu(g.to(torch.float32)).to(dt) * u
     return h @ p.w("down", dt)
+
+
+class GeluMLP(Params):
+    def __init__(self, init: ParamInit, d: int, f: int):
+        super().__init__()
+        self.up = init.normal((d, f))
+        self.up_b = init.zeros((f,))
+        self.down = init.normal((f, d))
+        self.down_b = init.zeros((d,))
+
+    def forward(self, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+        return gelu_mlp(self, x, cfg)
+
+
+def gelu_mlp(p: GeluMLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The reference's ``jax.nn.gelu``: the tanh approximation, in f32."""
+    dt = cfg.dtype
+    h = x @ p.w("up", dt) + p.w("up_b", dt)
+    h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
+    return h @ p.w("down", dt) + p.w("down_b", dt)
+
+
+class Projection(nn.Module):
+    """``x @ w (+ b)`` with the reference's parameter names ``w`` and
+    ``b`` (the VLM's ``vision_proj``, the encoder's ``feature_proj`` and
+    ``head``). ``w`` would shadow :meth:`Params.w`, so this is a plain
+    module, cast at each use."""
+
+    def __init__(self, init: ParamInit, d_in: int, d_out: int,
+                 bias: bool = True):
+        super().__init__()
+        self.w = init.normal((d_in, d_out))
+        if bias:
+            self.b = init.zeros((d_out,))
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        y = x.to(dtype) @ self.w.to(dtype)
+        return y + self.b.to(dtype) if hasattr(self, "b") else y
 
 
 class Embedding(Params):

@@ -13,11 +13,15 @@ constant, ``const`` holds a given value, and every parameter is stored
 in ``cfg.param_dtype``. The numbers differ from JAX's for the same seed
 (the generators differ); the shapes and scales do not.
 
-Parameters are forward-only (``requires_grad=False``): the port serves
-and does not train yet. :meth:`Params.w` returns a parameter in the
-compute dtype. The JAX model casts at every use; the port keeps one cast
-copy per parameter and remakes it when the parameter's storage or
-version changes, so a load or an in-place edit is never served stale.
+Parameters are trainable (``requires_grad=True``); the serving entry
+points turn that off with ``model.requires_grad_(False)``.
+:meth:`Params.w` returns a parameter in the compute dtype. The JAX model
+casts at every use. With grad enabled and a parameter that requires
+grad, so does the port: the cast stays in the autograd graph. Otherwise
+(under ``torch.no_grad()`` or ``torch.inference_mode()``, as serving
+runs) the port keeps one cast copy per parameter and remakes it when the
+parameter's storage or version changes, so a load, an optimizer step or
+an in-place edit is never served stale.
 """
 from __future__ import annotations
 
@@ -92,7 +96,7 @@ class ModelConfig:
     param_dtype: Any = torch.float32  # parameter storage dtype
 
     # execution knobs
-    remat: str = "full"        # kept for parity; the port does not train
+    remat: str = "full"        # none | full | dots (checkpointing a layer)
     attn_chunk: int = 1024     # kv-chunked attention threshold/chunk
     scan_layers: bool = True   # kept for parity; the port loops layers
     # "jnp" = the plain online-softmax chunked loop of tensor ops;
@@ -130,6 +134,8 @@ class ParamInit:
     """Makes parameters by the reference's init rule on ``device``.
 
     ``device="meta"`` makes shapes only (no storage, no random numbers).
+    Each parameter is drawn in f32 and cast to ``cfg.param_dtype`` alone,
+    so no temporary larger than one parameter's f32 draw is made.
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
@@ -142,7 +148,7 @@ class ParamInit:
         self.generator = generator
 
     def _param(self, t: torch.Tensor) -> nn.Parameter:
-        return nn.Parameter(t.to(self.cfg.param_dtype), requires_grad=False)
+        return nn.Parameter(t.to(self.cfg.param_dtype))
 
     def normal(self, shape: tuple[int, ...],
                scale: float | None = None) -> nn.Parameter:
@@ -187,10 +193,14 @@ class Params(nn.Module):
         self._cast: dict = {}
 
     def w(self, name: str, dtype: torch.dtype) -> torch.Tensor:
-        """Parameter ``name`` in ``dtype`` (a cached cast copy)."""
+        """Parameter ``name`` in ``dtype``: the cast in the autograd graph
+        when grad is enabled and ``name`` requires grad, else a cached
+        cast copy."""
         p = getattr(self, name)
         if p.dtype == dtype:
             return p
+        if p.requires_grad and torch.is_grad_enabled():
+            return p.to(dtype)
         key = (p.data_ptr(), p.device,
                0 if p.is_inference() else p._version)
         hit = self._cast.get((name, dtype))

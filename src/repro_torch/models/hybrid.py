@@ -19,6 +19,11 @@ reference's; both are written in place. The mamba layers are
 ``cfg.ssm_conv_impl == "pallas"``; a prefill longer than
 ``cfg.attn_chunk`` runs the shared block's attention through K8 with
 ``cfg.attn_impl == "flash"``.
+
+Training: :meth:`HybridLM.loss` is the reference's chunked CE. With grad
+enabled the mamba layers are checkpointed per ``cfg.remat``
+(``models.lm.remat``) and the shared block fully unless ``cfg.remat`` is
+``"none"``, as the reference's ``jax.checkpoint(self._shared)``.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, KVCache, attention, init_kv_cache
 from repro_torch.layers.ssm import SSMCache, init_ssm_cache
 from repro_torch.models.base import ModelConfig, ParamInit, with_config
+from repro_torch.models.lm import ce_from_hidden, detached, remat
 from repro_torch.models.ssm_lm import MambaLayer
 
 
@@ -38,7 +44,8 @@ class HybridLM(nn.Module):
     """zamba2 on PyTorch.
 
     Parameters are made on ``device`` (the card unless the caller asks
-    for the CPU) from ``generator`` by the reference's init rule.
+    for the CPU) from ``generator`` by the reference's init rule; they
+    require grad (serving turns that off with ``requires_grad_(False)``).
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
@@ -98,7 +105,7 @@ class HybridLM(nn.Module):
         """``layer`` on ``x``; with a cache, its state and conv tail at
         ``idx`` are read and overwritten."""
         if cache is None:
-            return layer(x, self.cfg)[0]
+            return remat(layer, self.cfg.remat)(x, self.cfg)[0]
         x, new = layer(x, self.cfg, SSMCache(cache.state[idx],
                                              cache.conv[idx]))
         cache.state[idx].copy_(new.state)
@@ -119,10 +126,14 @@ class HybridLM(nn.Module):
         ssm_g = None if cache is None else cache["ssm_groups"]
         ssm_t = None if cache is None else cache.get("ssm_tail")
         x = emb
+        shared = remat(self.shared_block,
+                       "none" if cfg.remat == "none" else "full")
         for g, group in enumerate(self.groups):
-            kv = None if cache is None else KVCache(
-                cache["kv"].k[g], cache["kv"].v[g], start)
-            x = self.shared_block(x, emb, positions, kv)
+            if cache is None:
+                x = shared(x, emb, positions, None)
+            else:
+                x = self.shared_block(x, emb, positions, KVCache(
+                    cache["kv"].k[g], cache["kv"].v[g], start))
             for i, layer in enumerate(group):
                 x = self.mamba_layer(layer, x, ssm_g, (g, i))
         for i, layer in enumerate(self.tail):
@@ -140,6 +151,14 @@ class HybridLM(nn.Module):
         if last_only:
             x = x[:, -1:]
         return basic.unembed(self.embedding, x, self.cfg), cache, aux
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Returns (ce, {"ce": ce}): the reference's chunked next-token CE."""
+        cfg = self.cfg
+        x, _, _ = self.forward_hidden(batch)
+        ce = ce_from_hidden(x, basic.head_weight(self.embedding, cfg),
+                            batch["labels"], cfg.padded_vocab, cfg.vocab_size)
+        return ce, detached({"ce": ce})
 
     def init_cache(self, batch: int, max_len: int) -> dict:
         """An empty cache, keyed as the reference's: ``kv`` (G, B, max_len,

@@ -1,30 +1,67 @@
-"""Decoder-only transformer LM: dense, MLA and the VLM backbone (twin of
-``repro.models.lm``).
+"""Decoder-only transformer LM: dense, MoE, MLA and the VLM backbone (twin
+of ``repro.models.lm``).
 
-One layer = pre-norm attention (GQA, or MLA for minicpm3) + pre-norm
-SwiGLU. The reference stacks layer parameters and runs ``lax.scan``; the
-port keeps one module per layer (``layers.<i>``) and loops over them. The
-cache (a KV cache, or MLA's latent cache) stays stacked over layers, as
-the reference's is. The VLM family (internvl2) is the text backbone plus
-``vision_proj``, which projects precomputed patch embeddings
-(``batch["image_embeds"]``) ahead of the text tokens.
+One layer = pre-norm attention (GQA, or MLA for minicpm3) + pre-norm FFN
+(SwiGLU, or the MoE layer for qwen3-moe). The reference stacks layer
+parameters and runs ``lax.scan``; the port keeps one module per layer
+(``layers.<i>``) and loops over them. The cache (a KV cache, or MLA's
+latent cache) stays stacked over layers, as the reference's is. The VLM
+family (internvl2) is the text backbone plus ``vision_proj``, which
+projects precomputed patch embeddings (``batch["image_embeds"]``) ahead
+of the text tokens.
 
-MoE FFNs (qwen3-moe) raise ``NotImplementedError``: a later slice
-(ROADMAP Queue 1, D3).
+Training: :meth:`DecoderLM.loss` is the reference's (chunked CE from the
+hidden states over the padded vocab, plus ``0.01 * lb + 1e-3 * z`` for
+MoE). With grad enabled each layer is checkpointed per ``cfg.remat``
+(:func:`remat`): ``"full"`` keeps a layer's input and recomputes the
+rest in the backward, ``"dots"`` also keeps the matmul outputs, as
+``jax.checkpoint_policies.checkpoint_dots`` does.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Callable, Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, KVCache, attention, init_kv_cache
 from repro_torch.layers.mla import MLA, MLACache, init_mla_cache, mla_attention
+from repro_torch.layers.moe import MoE, moe_ffn
 from repro_torch.models.base import ModelConfig, ParamInit, with_config
 
 Cache = KVCache | MLACache
+
+MOE_AUX = ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")
+
+# The matmul ops whose outputs ``remat="dots"`` keeps.
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, mode: str) -> Callable:
+    """``fn`` checkpointed per ``mode`` when grad is enabled (the
+    reference's ``_remat``): ``"none"``, ``"full"`` or ``"dots"``."""
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+    if mode == "none":
+        return fn
+
+    @functools.wraps(fn)
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        kw = {} if mode == "full" else {"context_fn": functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)}
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
 
 
 class DecoderLayer(nn.Module):
@@ -33,58 +70,49 @@ class DecoderLayer(nn.Module):
         self.ln1 = basic.RMSNorm(init, cfg.d_model)
         self.attn = (MLA if cfg.attn_type == "mla" else GQA)(init, cfg)
         self.ln2 = basic.RMSNorm(init, cfg.d_model)
-        self.ffn = basic.SwiGLU(init, cfg.d_model, cfg.d_ff)
+        self.ffn = (MoE(init, cfg) if cfg.n_experts
+                    else basic.SwiGLU(init, cfg.d_model, cfg.d_ff))
 
     def forward(self, x, positions, cfg: ModelConfig,
                 cache: Optional[Cache] = None):
+        """Returns (x', cache', aux); aux holds the MoE metrics, or is
+        empty."""
         attend = mla_attention if cfg.attn_type == "mla" else attention
         h, new_cache = attend(self.attn,
                               basic.rms_norm(self.ln1, x, cfg.norm_eps),
                               positions, cfg, cache)
         x = x + h
         y = basic.rms_norm(self.ln2, x, cfg.norm_eps)
-        return x + basic.swiglu(self.ffn, y, cfg), new_cache
-
-
-class VisionProj(nn.Module):
-    """The VLM's projection of raw vision embeddings into the stream. Its
-    parameters keep the reference's names, ``w`` and ``b``; ``w`` would
-    shadow :meth:`Params.w`, so it is a plain module, cast at each use."""
-
-    def __init__(self, init: ParamInit, cfg: ModelConfig):
-        super().__init__()
-        self.w = init.normal((cfg.vlm_vision_dim, cfg.d_model))
-        self.b = init.zeros((cfg.d_model,))
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError("MoE FFNs (qwen3-moe) are not ported yet "
-                                  "(ROADMAP Queue 1, D3)")
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(ROADMAP Queue 1, D3); DecoderLM runs "
-                                  f"dense and vlm")
+        if cfg.n_experts:
+            f, aux = moe_ffn(self.ffn, y, cfg)
+        else:
+            f, aux = basic.swiglu(self.ffn, y, cfg), {}
+        return x + f, new_cache, aux
 
 
 class DecoderLM(nn.Module):
-    """Dense llama-likes, qwen2.5, chatglm3, minicpm3 (MLA) and the
-    internvl2 text backbone (family ``"vlm"``) on PyTorch.
+    """Dense llama-likes, qwen2.5, chatglm3, minicpm3 (MLA), qwen3-moe
+    (family ``"moe"``) and the internvl2 text backbone (family ``"vlm"``)
+    on PyTorch.
 
     Parameters are made on ``device`` (the card unless the caller asks
-    for the CPU) from ``generator`` by the reference's init rule.
+    for the CPU) from ``generator`` by the reference's init rule; they
+    require grad (serving turns that off with ``requires_grad_(False)``).
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"DecoderLM runs the dense, moe and vlm "
+                             f"families; got {cfg.family!r}")
         self.cfg = cfg
         init = ParamInit(cfg, device=device, generator=generator)
         self.embedding = basic.Embedding(init, cfg)
         self.ln_f = basic.RMSNorm(init, cfg.d_model)
         if cfg.family == "vlm":
-            self.vision_proj = VisionProj(init, cfg)
+            self.vision_proj = basic.Projection(init, cfg.vlm_vision_dim,
+                                                cfg.d_model)
         self.layers = nn.ModuleList(DecoderLayer(init, cfg)
                                     for _ in range(cfg.n_layers))
 
@@ -100,7 +128,7 @@ class DecoderLM(nn.Module):
             "vocab_size", "head_dim", "qkv_bias", "tie_embeddings",
             "family", "attn_type", "q_lora_rank", "kv_lora_rank",
             "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim",
-            "vlm_vision_dim"))
+            "vlm_vision_dim", "n_experts"))
 
     # ---------------------------- forward ----------------------------
 
@@ -110,28 +138,35 @@ class DecoderLM(nn.Module):
         cfg = self.cfg
         x = basic.embed(self.embedding, batch["tokens"], cfg)
         if cfg.family == "vlm" and "image_embeds" in batch:
-            p = self.vision_proj
-            img = (batch["image_embeds"].to(cfg.dtype) @ p.w.to(cfg.dtype)
-                   + p.b.to(cfg.dtype))
+            img = self.vision_proj(batch["image_embeds"], cfg.dtype)
             x = torch.cat([img, x], dim=1)
         return x
 
     def forward_hidden(self, batch: Dict[str, torch.Tensor],
                        cache: Optional[Cache] = None):
-        """Returns (final normed hidden (B, S, D), new_cache, aux)."""
+        """Returns (final normed hidden (B, S, D), new_cache, aux); for
+        MoE, aux holds each metric's mean over the layers."""
         cfg = self.cfg
         x = self._embed_inputs(batch)
         bsz, s, _ = x.shape
         start = 0 if cache is None else cache_length(cache)
         positions = (start + torch.arange(s, device=x.device)).expand(bsz, s)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = dict.fromkeys(MOE_AUX, zero) if cfg.n_experts else {}
         for i, layer in enumerate(self.layers):
-            lcache = None if cache is None else type(cache)(
-                cache[0][i], cache[1][i], cache.length)
-            x, _ = layer(x, positions, cfg, lcache)
+            if cache is None:
+                x, _, a = remat(functools.partial(
+                    layer, positions=positions, cfg=cfg), cfg.remat)(x)
+            else:
+                lcache = type(cache)(cache[0][i], cache[1][i], cache.length)
+                x, _, a = layer(x, positions, cfg, lcache)
+            aux = {k: aux[k] + a[k] for k in aux}
         x = basic.rms_norm(self.ln_f, x, cfg.norm_eps)
         new_cache = None if cache is None else cache._replace(
             length=cache.length + s)
-        return x, new_cache, {}
+        if cfg.n_experts:
+            aux = {k: v / cfg.n_layers for k, v in aux.items()}
+        return x, new_cache, aux
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 cache: Optional[Cache] = None, last_only: bool = False):
@@ -141,6 +176,24 @@ class DecoderLM(nn.Module):
         if last_only:
             x = x[:, -1:]
         return basic.unembed(self.embedding, x, self.cfg), new_cache, aux
+
+    # ----------------------------- loss -----------------------------
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Returns (loss, metrics): the next-token CE over the text (the
+        VLM's image positions carry none), plus for MoE ``0.01 * lb +
+        1e-3 * z``; metrics hold ``ce`` and the MoE aux, detached."""
+        cfg = self.cfg
+        x, _, aux = self.forward_hidden(batch)
+        if cfg.family == "vlm" and "image_embeds" in batch:
+            x = x[:, batch["image_embeds"].shape[1]:]
+        ce = ce_from_hidden(x, basic.head_weight(self.embedding, cfg),
+                            batch["labels"], cfg.padded_vocab, cfg.vocab_size)
+        total = ce
+        if aux:
+            total = total + 0.01 * aux["moe_lb_loss"] \
+                + 1e-3 * aux["moe_z_loss"]
+        return total, detached({"ce": ce, **aux})
 
     # --------------------------- serving ---------------------------
 
@@ -157,3 +210,49 @@ class DecoderLM(nn.Module):
 def cache_length(cache: Any) -> int:
     """All layers share the same length."""
     return int(cache.length)
+
+
+def detached(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach() for k, v in metrics.items()}
+
+
+def _pad_mask(padded_vocab: int, true_vocab: int, device) -> torch.Tensor:
+    """-1e30 additive bias over the padded vocab tail (f32)."""
+    ids = torch.arange(padded_vocab, device=device)
+    return torch.where(ids < true_vocab, 0.0, -1e30).to(torch.float32)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  padded_vocab: int, true_vocab: int) -> torch.Tensor:
+    """Mean next-token CE; padded vocab ids masked out of the softmax."""
+    logits = logits + _pad_mask(padded_vocab, true_vocab, logits.device)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def ce_from_hidden(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                   padded_vocab: int, true_vocab: int,
+                   chunk: int = 512) -> torch.Tensor:
+    """Sequence-chunked CE straight from hidden states (B, S, D) and the
+    head ``w`` (D, V).
+
+    Never materializes the (B, S, V) logits: each chunk's (B, chunk, V)
+    logits are reduced to (logz, gold) and dropped. The logits are the
+    f32 products of the compute-dtype operands (the reference's
+    ``preferred_element_type=float32``: no rounding to the compute dtype).
+    """
+    bsz, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        chunk = s  # fall back (small odd sequences in tests)
+    mask = _pad_mask(padded_vocab, true_vocab, x.device)
+    wf = w.to(torch.float32)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        logits = x[:, c0:c0 + chunk].to(torch.float32) @ wf + mask
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels[:, c0:c0 + chunk, None])[..., 0]
+        total = total + torch.sum(logz - gold)
+    return total / (bsz * s)

@@ -1,9 +1,9 @@
 """Model factory + parameter accounting (twin of ``repro.models.registry``).
 
-The port builds the dense (GQA and MLA), VLM-backbone, SSM and hybrid
-families; :func:`count_params` counts any config the port builds, from its
-parameter shapes (a model made on the ``meta`` device holds shapes and no
-storage).
+The port builds every family of the reference: dense (GQA and MLA), MoE,
+the VLM backbone, SSM, hybrid and the encoder. :func:`count_params`
+counts any config from its parameter shapes (a model made on the
+``meta`` device holds shapes and no storage).
 """
 from __future__ import annotations
 
@@ -14,18 +14,22 @@ from repro_torch.models.base import ModelConfig
 
 def build_model(cfg: ModelConfig, *, device="cuda",
                 generator: torch.Generator | None = None):
+    """The model for ``cfg``'s family, its parameters made on ``device``
+    from ``generator``; they require grad (serving turns that off with
+    ``requires_grad_(False)``)."""
+    kw = dict(device=device, generator=generator)
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models.lm import DecoderLM
-        return DecoderLM(cfg, device=device, generator=generator)
+        return DecoderLM(cfg, **kw)
     if cfg.family == "ssm":
         from repro_torch.models.ssm_lm import MambaLM
-        return MambaLM(cfg, device=device, generator=generator)
+        return MambaLM(cfg, **kw)
     if cfg.family == "hybrid":
         from repro_torch.models.hybrid import HybridLM
-        return HybridLM(cfg, device=device, generator=generator)
+        return HybridLM(cfg, **kw)
     if cfg.family == "encoder":
-        raise NotImplementedError("family 'encoder' is not ported yet "
-                                  "(ROADMAP Queue 1, D3)")
+        from repro_torch.models.encoder import EncoderModel
+        return EncoderModel(cfg, **kw)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 
@@ -33,3 +37,4 @@ def count_params(cfg: ModelConfig) -> int:
     """Exact parameter count from the parameter shapes (no allocation)."""
     model = build_model(cfg, device="meta")
     return sum(p.numel() for p in model.parameters())
+

@@ -5,7 +5,9 @@ One layer = pre-norm Mamba2 block with a residual. The reference stacks
 layer parameters and runs ``lax.scan``; the port keeps one module per
 layer (``layers.<i>``) and loops over them. The cache (SSD state and conv
 tail) stays stacked over layers, as the reference's is, and is written in
-place, which stands in for the reference's buffer donation.
+place, which stands in for the reference's buffer donation. Training:
+:meth:`MambaLM.loss` is the reference's chunked CE; with grad enabled each
+layer is checkpointed per ``cfg.remat`` (``models.lm.remat``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from torch import nn
 from repro_torch.layers import basic
 from repro_torch.layers.ssm import SSM, SSMCache, init_ssm_cache, ssm_block
 from repro_torch.models.base import ModelConfig, ParamInit, with_config
+from repro_torch.models.lm import ce_from_hidden, detached, remat
 
 
 class MambaLayer(nn.Module):
@@ -36,7 +39,8 @@ class MambaLM(nn.Module):
     """mamba2 on PyTorch.
 
     Parameters are made on ``device`` (the card unless the caller asks
-    for the CPU) from ``generator`` by the reference's init rule.
+    for the CPU) from ``generator`` by the reference's init rule; they
+    require grad (serving turns that off with ``requires_grad_(False)``).
     """
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
@@ -69,7 +73,7 @@ class MambaLM(nn.Module):
         x = basic.embed(self.embedding, batch["tokens"], cfg)
         for i, layer in enumerate(self.layers):
             if cache is None:
-                x, _ = layer(x, cfg)
+                x, _ = remat(layer, cfg.remat)(x, cfg)
                 continue
             x, new = layer(x, cfg, SSMCache(cache.state[i], cache.conv[i]))
             cache.state[i].copy_(new.state)
@@ -85,6 +89,14 @@ class MambaLM(nn.Module):
         if last_only:
             x = x[:, -1:]
         return basic.unembed(self.embedding, x, self.cfg), cache, aux
+
+    def loss(self, batch: Dict[str, torch.Tensor]):
+        """Returns (ce, {"ce": ce}): the reference's chunked next-token CE."""
+        cfg = self.cfg
+        x, _, _ = self.forward_hidden(batch)
+        ce = ce_from_hidden(x, basic.head_weight(self.embedding, cfg),
+                            batch["labels"], cfg.padded_vocab, cfg.vocab_size)
+        return ce, detached({"ce": ce})
 
     def init_cache(self, batch: int, max_len: int = 0) -> SSMCache:
         """An empty cache stacked over layers: state (L, B, G, M, P, N) f32,

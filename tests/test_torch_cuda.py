@@ -528,6 +528,7 @@ def test_smoke_lm_serves_through_the_flash_kernel(cuda):
                               attn_chunk=16, attn_impl="flash")
     model = build_model(cfg, device=cuda,
                         generator=torch.Generator(cuda).manual_seed(0))
+    model.requires_grad_(False)
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, 512, 64, dtype=np.int32),
                     max_new_tokens=4) for _ in range(2)]
@@ -557,6 +558,7 @@ def test_smoke_hybrid_at_hd_112_serves_through_k8_and_k7(cuda):
                               ssm_conv_impl="pallas")
     model = build_model(cfg, device=cuda,
                         generator=torch.Generator(cuda).manual_seed(0))
+    model.requires_grad_(False)
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, 512, 32, dtype=np.int32),
                     max_new_tokens=4) for _ in range(2)]
@@ -636,6 +638,7 @@ def test_smoke_mamba_through_the_conv_kernel(cuda):
                               ssm_conv_impl="pallas")
     model = build_model(cfg, device=cuda,
                         generator=torch.Generator(cuda).manual_seed(0))
+    model.requires_grad_(False)
     plain = model.with_config(dataclasses.replace(cfg, ssm_conv_impl="jnp"))
     toks = torch.arange(64, device=cuda)[None].repeat(2, 1) % cfg.vocab_size
     TK.reset_launch_counts()
@@ -1168,6 +1171,7 @@ def test_smoke_decoders_of_slice_13_on_the_card(cuda):
                                   attn_chunk=16, attn_impl="flash")
         model = build_model(cfg, device=cuda,
                             generator=torch.Generator(cuda).manual_seed(0))
+        model.requires_grad_(False)
         reqs = [Request(prompt=rng.integers(0, 512, 64, dtype=np.int32),
                         max_new_tokens=4) for _ in range(2)]
         TF.reset_launch_counts()

@@ -63,6 +63,15 @@ class JaxCfg(JaxModelConfig):
     """The JAX config with the conv switch its ssm layer reads."""
     ssm_conv_impl: str = "jnp"
 
+@pytest.fixture(autouse=True)
+def _forward_without_grad():
+    """These tests hold the forward (serving) path, which runs under
+    ``torch.no_grad()`` as ``ServeEngine`` does: parameters require grad
+    by default, and K8 and K7 refuse a gradient. Training is held in
+    ``tests/test_torch_train.py``."""
+    with torch.no_grad():
+        yield
+
 
 def _cfgs(dname="float32", **kw):
     jdt, tdt = DT[dname]

@@ -50,7 +50,16 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.examples.serve_lm", "repro_torch.layers.mla",
             "repro_torch.configs.chatglm3_6b",
             "repro_torch.configs.minicpm3_4b",
-            "repro_torch.configs.internvl2_2b"} <= set(MODULES)
+            "repro_torch.configs.internvl2_2b", "repro_torch.layers.moe",
+            "repro_torch.models.encoder",
+            "repro_torch.configs.qwen3_moe_30b_a3b",
+            "repro_torch.configs.qwen3_moe_235b_a22b",
+            "repro_torch.configs.hubert_xlarge", "repro_torch.train",
+            "repro_torch.train.optimizer", "repro_torch.train.trainstep",
+            "repro_torch.train.data", "repro_torch.train.checkpoint",
+            "repro_torch.train.fault", "repro_torch.train.compression",
+            "repro_torch.launch.train", "repro_torch.examples.train_lm",
+            "repro_torch.examples.fault_tolerant_training"} <= set(MODULES)
 
 
 def test_source_has_no_jax_or_repro_imports():
@@ -83,6 +92,23 @@ def test_cli_on_cpu_checks_against_reference():
                   "1e-3", "--device", "cpu", "--check")
     assert res.returncode == 0, res.stderr
     assert "iters=16/19" in res.stdout and "CHECK OK" in res.stdout
+
+
+def test_train_cli_without_device_cpu_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the CLI default runs on it")
+    res = _python("-m", "repro_torch.launch.train", "--arch", "qwen2.5-3b",
+                  "--smoke", "--steps", "1")
+    assert res.returncode != 0
+    assert "cuda" in res.stderr and "done:" not in res.stdout
+
+
+def test_train_cli_on_cpu_runs_a_few_steps(tmp_path):
+    res = _python("-m", "repro_torch.launch.train", "--arch", "mamba2-2.7b",
+                  "--smoke", "--device", "cpu", "--steps", "3", "--batch",
+                  "2", "--seq", "32", "--ckpt-dir", str(tmp_path / "ck"))
+    assert res.returncode == 0, res.stderr
+    assert "step     2  ce=" in res.stdout and "done: 3 steps" in res.stdout
 
 
 def test_kernel_build_is_deferred_to_first_launch():

@@ -30,6 +30,15 @@ TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=5e-2, atol=8e-2)}
 B, SMAX = 2, 48
 
+@pytest.fixture(autouse=True)
+def _forward_without_grad():
+    """These tests hold the forward (serving) path, which runs under
+    ``torch.no_grad()`` as ``ServeEngine`` does: parameters require grad
+    by default, and K8 and K7 refuse a gradient. Training is held in
+    ``tests/test_torch_train.py``."""
+    with torch.no_grad():
+        yield
+
 
 def _cfgs(dname="float32", **kw):
     jdt, tdt = DT[dname]

@@ -42,6 +42,15 @@ class JaxCfg(JaxModelConfig):
     """The JAX config with the conv switch its ssm layer reads."""
     ssm_conv_impl: str = "jnp"
 
+@pytest.fixture(autouse=True)
+def _forward_without_grad():
+    """These tests hold the forward (serving) path, which runs under
+    ``torch.no_grad()`` as ``ServeEngine`` does: parameters require grad
+    by default, and K8 and K7 refuse a gradient. Training is held in
+    ``tests/test_torch_train.py``."""
+    with torch.no_grad():
+        yield
+
 
 def _cfgs(dname="float32", impl="jnp", **kw):
     jdt, tdt = DT[dname]
@@ -308,7 +317,7 @@ def test_init_rule_shapes_and_scales():
     _, tcfg = _cfgs()
     model = build_model(tcfg, device="cpu",
                         generator=torch.Generator().manual_seed(3))
-    assert not any(p.requires_grad for p in model.parameters())
+    assert all(p.requires_grad for p in model.parameters())
     assert all(p.dtype == torch.float32 for p in model.parameters())
     h, cd = tcfg.ssm_heads, TS.conv_dim(tcfg)
     ssm = model.layers[1].ssm
