@@ -277,7 +277,37 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     of each family at full width and 2 layers (zamba2: 7, one group and
     a tail layer) with finite loss and gradients; both training example
     twins; no kernel launched by any of it;
-20. one JSON line listing the kernels, then the card's name and power
+20. the dry run and the roofline, and the sharded LM pieces: (a) the dry
+    run (``repro_torch.launch.dryrun``) of every arch x shape on the pod
+    and multipod meshes under ``gpu_sm90``, all on ``meta``, in four
+    worker processes started after phase 2 (at a lower priority, no card
+    visible to them) beside phases 3-19; no cell may be an error, 31 of
+    the 40 on each mesh must count (the rest are the reference's skips);
+    the roofline and dry-run tables and the seconds are printed. (b) Four
+    cells on the card, each also counted on ``meta`` at the same shapes:
+    qwen2.5-3b ``prefill_32k`` at 2 x 32768 on ``attn_impl="flash"`` (K8
+    once a layer, 36, as the counter counts; the jnp route's count beside
+    it), ``decode_32k`` with 8 sequences, one token against a filled
+    32768-token cache, ``train_4k`` at 1 x 4096 with remat ``"full"``
+    (AdamW, one microbatch), and mamba2-2.7b ``long_500k`` (batch 1):
+    median ms, ``max_memory_allocated`` beside the counter's memory per
+    device, the counted FLOPs and bytes, ``compute_s``, ``memory_s`` and
+    ``bound_s`` under ``gpu_sm90``'s published peaks, and bound_s over the
+    measured time; every cut of the cell is listed as ``reduced``. K8 at
+    the prefill's attention shape (B=2, S=32768, H=16, K=2, hd=128) is
+    held against its plain version (3e-2) and timed beside its bound and
+    SDPA. (c) On in-process meshes of the card: K8 under a (2, 2) data x
+    model mesh bit for bit the unsharded call (4 launches); K7 after
+    ``conv_halo_exchange`` on 4 sequence shards of mamba2-2.7b's conv at
+    full width bit for bit the unsharded K7 (4 launches);
+    ``ssd_sequence_parallel`` on 4 shards within 2e-4 of the single-device
+    SSD (the reference test's shapes; at mamba2-2.7b's heads 2e-4 of
+    max|y|); qwen2.5-3b's 36 layers in 4 pipeline stages in f32, the
+    forward bit for bit the sequential one at equal microbatch size and
+    within 2e-5 of max |y| of the whole batch at once (its GEMMs sum 4x
+    the rows in another order), the gradients within 5e-4 / 5e-5; ``compressed_psum`` over 4 replicas, int8 and bf16, on the card
+    bit for bit the CPU's;
+21. one JSON line listing the kernels, then the card's name and power
     limit, then the result line. Each phase's seconds are printed as it
     ends, and all of them before the JSON line.
 
@@ -321,7 +351,12 @@ from repro_torch.kernels import conv1d as conv  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import stream  # noqa: E402
 from repro_torch.layers import basic  # noqa: E402
-from repro_torch.launch import access  # noqa: E402
+from repro_torch import roofline  # noqa: E402
+from repro_torch.configs.shapes import SHAPES, ShapeCell  # noqa: E402
+from repro_torch.engine.device import get_device  # noqa: E402
+from repro_torch.launch import access, dryrun, tuning  # noqa: E402
+from repro_torch.launch import report as dry_report  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.train.checkpoint import state_digest  # noqa: E402
 from repro_torch.layers.moe import MoE, capacity, moe_ffn  # noqa: E402
 from repro_torch.models.base import ParamInit  # noqa: E402
@@ -3132,6 +3167,401 @@ def phase_train(smi: str, stats) -> None:
     shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 20: the dry run and the roofline, and the sharded LM pieces on an
+# in-process mesh. The dry run counts on ``meta`` and needs no card, so it
+# starts in worker processes when the script starts (at a lower priority)
+# and runs beside phases 3-19; the archs are dealt to the workers by the
+# seconds their cells took to count on a CPU (train cells dominate).
+DRYRUN_DIR = ROOT / dryrun.OUTDIR
+DRYRUN_WORKERS = [
+    ("qwen3-moe-235b-a22b", "internvl2-2b"),
+    ("zamba2-7b", "chatglm3-6b", "deepseek-7b"),
+    ("minicpm3-4b", "qwen3-moe-30b-a3b"),
+    ("mamba2-2.7b", "hubert-xlarge", "qwen2.5-3b"),
+]
+DRYRUN_MESHES = ("pod", "multipod")
+# The card's published rates, ``gpu_sm90``'s constants (H100 SXM data
+# sheet: dense bf16 tensor cores, HBM3), not measurements.
+HW = get_device("gpu_sm90")
+
+
+def start_dryrun() -> tuple[float, list]:
+    """Start the dry run's workers: every arch x shape on both production
+    meshes under gpu_sm90, on meta, each record written anew; (start
+    time, the processes)."""
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for i, archs in enumerate(DRYRUN_WORKERS):
+        log = open(DRYRUN_DIR / f"worker{i}.log", "w")
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--device-model", "gpu_sm90", "--outdir", str(DRYRUN_DIR),
+               "--force"]
+        for arch in archs:
+            cmd += ["--arch", arch]
+        procs.append((subprocess.Popen(
+            cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                     CUDA_VISIBLE_DEVICES=""),
+            preexec_fn=lambda: os.nice(10)), log))
+    return time.perf_counter(), procs
+
+
+def phase_dryrun(dry, smi: str) -> None:
+    t0, procs = dry
+    waited = time.perf_counter()
+    for proc, log in procs:
+        rc = proc.wait(timeout=420)
+        log.close()
+        check(rc == 0, f"a dry-run worker exited {rc}: "
+              f"{pathlib.Path(log.name).read_text()[-2000:]}")
+    done = time.perf_counter()
+    recs = dry_report.load(str(DRYRUN_DIR))
+    print(f"== phase 20a: the dry run, {len(recs)} cells (10 archs x 4 "
+          f"shapes x {DRYRUN_MESHES}), all on meta, priced by gpu_sm90's "
+          f"published 989 TFLOP/s (bf16 dense) and 3.35 TB/s (HBM3); "
+          f"{len(procs)} workers beside phases 3-19: {done - t0:.1f}s from "
+          f"their start, {done - waited:.1f}s waited here; counting "
+          f"{sum(r.get('count_s', 0) for r in recs):.1f}s in all ==")
+    errors = [r for r in recs if r["status"] == "error"]
+    check(not errors, "dry-run errors: " + str(
+        [(r["arch"], r["shape"], r["mesh"], r["error"]) for r in errors]))
+    check(len(recs) == 10 * 4 * len(DRYRUN_MESHES)
+          and sum(r["status"] == "ok" for r in recs)
+          == 31 * len(DRYRUN_MESHES),
+          f"{len(recs)} records, "
+          f"{sum(r['status'] == 'ok' for r in recs)} ok")
+    for mesh in DRYRUN_MESHES:
+        print(f"-- roofline, {mesh} mesh --")
+        print(dry_report.roofline_table(recs, mesh))
+    print(dry_report.dryrun_table(recs))
+    print(f"(the dry run's numbers are counted, not measured; {smi})")
+
+
+def fill_kv(cache, length: int, seed: int):
+    """The KV cache's buffers filled with random keys and values, its first
+    ``length`` entries counted as written."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda") * 0.5)
+    return cache._replace(length=length)
+
+
+def measured_cell(arch: str, shape: str, cell, reduced: list, smi: str,
+                  rows: list, *, attn_impl: str = "jnp", fill=None):
+    """Run one cell on the card (counted first on meta at the same shapes)
+    and print its time, memory and roofline share; returns its launches
+    and the counter's cost."""
+    card_mesh = make_mesh((1, 1), ("data", "model"))
+    meta_mesh = make_mesh((1, 1), ("data", "model"), ["meta"])
+    cfg0 = configs.get_config(arch)
+    cfg, knobs = tuning.tuned(cfg0, shape, card_mesh)
+    cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
+    if cell.kind == "train":
+        reduced = reduced + [f"accum_steps {knobs.accum_steps} -> 1"]
+        knobs = dataclasses.replace(knobs, accum_steps=1)
+    cost, mem = dryrun.count_cell(cfg, cell, meta_mesh, knobs)
+    g = torch.Generator("cuda").manual_seed(0)
+    model = build_model(cfg, device="cuda", generator=g)
+    batch = dryrun.cell_inputs(cfg, cell, "cuda", g)
+    cache = None
+    if cell.kind == "decode":
+        cache = model.init_cache(cell.global_batch, cell.seq_len)
+        if fill is not None:
+            cache = fill(cache)
+    run, _, _ = dryrun.cell_program(model, cell, knobs, batch, cache)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    out = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in all_launches().items() if v}
+    first = out if isinstance(out, torch.Tensor) else out[0]
+    if cell.kind == "train":
+        first = out[1]["ce"]
+    check(bool(torch.isfinite(first.float()).all()),
+          f"{arch} {shape}: non-finite output")
+    kernels = {k: v for k, v in launches.items()
+               if k not in ("flash_attention_wgmma", "flash_attention_tf32")}
+    check(kernels == cost.kernels, f"{arch} {shape}: the card's launches "
+          f"{launches} != the counter's {cost.kernels}")
+    ms = wall_ms(run, reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    rl = roofline.analyze(cost, 1, dryrun.model_flops(cfg0, cell), hw=HW)
+    share = rl.bound_s * 1e3 / ms
+    print(f"[{arch} {shape}] {cell.global_batch} x {cell.seq_len} "
+          f"({cell.kind}; reduced: {reduced or 'none'}); attn_impl="
+          f"{attn_impl}: median {ms:.3f} ms (wall, 3 runs); peak "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated) vs the counter's "
+          f"{mem['total_nonalias'] / 2**30:.2f} GiB (args "
+          f"{mem['argument_size_in_bytes'] / 2**30:.2f}, temp "
+          f"{mem['temp_size_in_bytes'] / 2**30:.2f}); counted "
+          f"{cost.dot_flops:.6e} dot FLOPs, {cost.hbm_proxy_bytes:.6e} "
+          f"proxy bytes, kernels {cost.kernels}, launched {launches}; "
+          f"gpu_sm90 (published peaks) compute_s {rl.compute_s:.6e} "
+          f"memory_s {rl.memory_s:.6e} bound_s {rl.bound_s:.6e} "
+          f"({rl.dominant}); bound/measured {share:.4f}; on {smi}")
+    rows.append({"arch": arch, "shape": shape, "batch": cell.global_batch,
+                 "seq": cell.seq_len, "reduced": reduced, "ms": ms,
+                 "peak_gib": peak / 2**30,
+                 "counted_gib": mem["total_nonalias"] / 2**30,
+                 "flops": cost.dot_flops, "bytes": cost.hbm_proxy_bytes,
+                 "compute_s": rl.compute_s, "memory_s": rl.memory_s,
+                 "bound_s": rl.bound_s, "dominant": rl.dominant,
+                 "share": share, "launches": launches})
+    del model, batch, cache, run, out, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, cost
+
+
+def flash_32k(peaks, stats) -> None:
+    """K8 at the prefill cell's attention shape (S = 32768): held against
+    its plain version and timed beside its bound and SDPA.
+
+    q is drawn 4x wider than k, so the softmax of a row falls on a few
+    keys and its output is O(1) at every position: a key tile dropped or
+    read twice, or a causal edge one key off, moves a row's output by
+    about its own size. With randn q the outputs at position n are
+    ~sqrt(e / n), ~0.01 at the middle rows, below a fixed 3e-2. The
+    check is elementwise, |err| <= 1e-3 + 1e-2 |want| (one bf16 ulp is
+    at most 2^-7 of the value), and rms(err) / rms(want) <= 1e-2."""
+    b, s, h, kh, hd = 2, 32768, 16, 2, 128
+    g = torch.Generator("cuda").manual_seed(32)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda") for shape in
+               ((b, s, h, hd), (b, s, kh, hd), (b, s, kh, hd)))
+    q, k, v = ((q * 4).to(torch.bfloat16), k.to(torch.bfloat16),
+               v.to(torch.bfloat16))
+    flash.reset_launch_counts()
+    got = flash.flash_attention_local(q, k, v, causal=True)
+    check(flash.LAUNCHES["flash_attention_wgmma"] == 1,
+          f"K8 at S=32768 must launch the wgmma kernel: {flash.LAUNCHES}")
+    want = flash.flash_attention_local_plain(q, k, v, causal=True).float()
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    worst = float((diff - 1e-2 * want.abs()).max())
+    rms_want = float(want.square().mean().sqrt())
+    rel_rms = float(diff.square().mean().sqrt()) / rms_want
+    rel_max = err / float(want.abs().max())
+    print(f"K8 at S=32768 (q drawn 4x): max|err| {err:.3e}, max|err| / "
+          f"max|want| {rel_max:.3e}, rms(err) / rms(want) {rel_rms:.3e}, "
+          f"rms(want) {rms_want:.3f}, worst |err| - 1e-2 |want| "
+          f"{worst:.3e} (bound 1e-3)")
+    check(bool(got.float().isfinite().all()) and worst <= 1e-3
+          and rel_rms <= 1e-2,
+          f"K8 at S=32768: |err| - 1e-2 |want| reaches {worst} (bound "
+          f"1e-3), rms(err) / rms(want) {rel_rms} (bound 1e-2)")
+    del want, diff
+    k_ms = device_ms(lambda: flash.flash_attention_local(q, k, v),
+                     reps=5, inner=3)
+    p_ms = device_ms(lambda: flash.flash_attention_local_plain(q, k, v),
+                     reps=3, inner=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), reps=5, inner=3)
+    b_ms, b_by = flash_bound_ms(q, k, True, peaks)
+    print(f"K8 B={b} S={s} H={h} K={kh} hd={hd} causal bf16 wgmma: "
+          f"max|err|={err:.3e} (tol 1e-3 + 1e-2 |want|) "
+          f"kernel_ms={k_ms:.6f} "
+          f"bound_ms={b_ms:.6f} ({b_by}) share {b_ms / k_ms:.1%} "
+          f"sdpa_ms={lib_ms:.6f} plain_ms={p_ms:.6f}")
+    stats["flash"]["s32k"] = {
+        "shape": f"B={b} S={s} H={h} K={kh} hd={hd} causal",
+        "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms}
+
+
+def phase_roofline(smi: str, peaks, stats) -> None:
+    print("== phase 20b: four cells on one card, counted and measured; "
+          "the roofline at gpu_sm90's published 989 TFLOP/s (bf16 dense) "
+          f"and 3.35 TB/s; {smi} ==")
+    rows: list = []
+    flash_32k(peaks, stats)
+    pre = ShapeCell("prefill_32k", 32768, 2, "prefill")
+    meta_mesh = make_mesh((1, 1), ("data", "model"), ["meta"])
+    cfg_j, knobs_j = tuning.tuned(configs.get_config("qwen2.5-3b"),
+                                  "prefill_32k", meta_mesh)
+    jnp_cost, _ = dryrun.count_cell(cfg_j, pre, meta_mesh, knobs_j)
+    launches, flash_cost = measured_cell(
+        "qwen2.5-3b", "prefill_32k", pre, ["global_batch 32 -> 2"], smi,
+        rows, attn_impl="flash")
+    check(launches == {"flash_attention": 36, "flash_attention_wgmma": 36},
+          f"the prefill cell must launch K8 once a layer: {launches}")
+    stats["flash"].setdefault("paths", {})[
+        "phase 20 prefill_32k (qwen2.5-3b, 2 x 32768, flash)"] = 36
+    print(f"the same cell on the jnp route, counted: {jnp_cost.dot_flops:.6e}"
+          f" dot FLOPs ({jnp_cost.dot_flops / flash_cost.dot_flops:.3f}x "
+          f"the flash route's: the chunked route computes every key chunk, "
+          f"K8 only the causal blocks), {jnp_cost.hbm_proxy_bytes:.6e} "
+          f"proxy bytes")
+    measured_cell("qwen2.5-3b", "decode_32k",
+                  ShapeCell("decode_32k", 32768, 8, "decode"),
+                  ["global_batch 128 -> 8"], smi, rows,
+                  fill=lambda c: fill_kv(c, 32767, 1))
+    measured_cell("qwen2.5-3b", "train_4k",
+                  ShapeCell("train_4k", 4096, 1, "train"),
+                  ["global_batch 256 -> 1"], smi, rows)
+    measured_cell("mamba2-2.7b", "long_500k", SHAPES["long_500k"], [], smi,
+                  rows)
+    print(f"phase 20b cells: {json.dumps(rows)}")
+    stats["roofline_cells"] = rows
+
+
+def phase_c2(smi: str, stats) -> None:
+    from repro_torch.core import ssm_sp
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.pipeline import pipeline_forward, split_stages
+    from repro_torch.kernels import ops
+    from repro_torch.layers.ssm import ssd_scan
+    from repro_torch.models.lm import DecoderLayer
+    from repro_torch.train.compression import EFState, compressed_psum
+    print("== phase 20c: the sharded LM pieces on in-process meshes of "
+          f"the card; {smi} ==")
+    # K8 sharded over a (2, 2) data x model mesh at qwen2.5-3b's heads
+    g = torch.Generator("cuda").manual_seed(20)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
+        torch.bfloat16) for shape in ((4, 2048, 16, 128), (4, 2048, 2, 128),
+                                      (4, 2048, 2, 128)))
+    whole = flash.flash_attention_local(q, k, v, causal=True)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    reset_all_launches()
+    with shd.use_mesh(mesh):
+        got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    n = flash.LAUNCHES["flash_attention_wgmma"]
+    check(n == 4 and torch.equal(got, whole),
+          f"sharded K8 on (2, 2): {n} launches, equal "
+          f"{torch.equal(got, whole)}")
+    stats["flash"].setdefault("paths", {})[
+        "phase 20 ops.flash_attention on a (2, 2) data x model mesh"] = n
+    print(f"K8 on a (2, 2) data x model mesh, B=4 S=2048 H=16 K=2 hd=128 "
+          f"bf16: 4 launches (a batch half x a KV head each), bit for bit "
+          f"the unsharded call")
+    # K7 on 4 sequence shards of mamba2-2.7b's conv (conv_dim 5376)
+    x = torch.randn((4, 2048, 5376), generator=g, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn((4, 5376), generator=g, device="cuda") * 0.5).to(
+        torch.bfloat16)
+    bias = torch.randn((5376,), generator=g, device="cuda").to(
+        torch.bfloat16)
+    sp = make_mesh((4,), ("sp",))
+    want = conv.conv1d_depthwise_causal(x, w, bias)
+    reset_all_launches()
+    ext = ssm_sp.conv_halo_exchange(
+        shd.lay_out(x, (None, "sp"), sp).shards, 4)
+    got = torch.cat([conv.conv1d_depthwise_causal(e, w, bias)[:, 3:]
+                     for e in ext], 1)
+    torch.cuda.synchronize()
+    n = conv.LAUNCHES["conv1d"]
+    check(n == 4 and torch.equal(got, want),
+          f"K7 on 4 sequence shards: {n} launches, equal "
+          f"{torch.equal(got, want)}")
+    stats["conv1d"].setdefault("paths", {})[
+        "phase 20 conv_halo_exchange + K7, 4 sequence shards"] = n
+    print("K7 after conv_halo_exchange on 4 sequence shards (B=4 L=4x512 "
+          "D=5376 K=4 bf16): 4 launches, bit for bit the unsharded conv")
+    # the sequence-parallel SSD: the reference test's shapes, and
+    # mamba2-2.7b's heads (80 of 64, state 128, chunk 256)
+    for label, (bsz, length, m, p, nst, ch) in (
+            ("tests/test_ssm_sp.py", (2, 256, 4, 8, 16, 32)),
+            ("mamba2-2.7b heads", (1, 2048, 80, 64, 128, 256))):
+        xs = torch.randn((bsz, length, 1, m, p), generator=g, device="cuda")
+        dt = F.softplus(torch.randn((bsz, length, 1, m), generator=g,
+                                    device="cuda"))
+        a = -torch.exp(torch.randn((1, m), generator=g, device="cuda") * 0.3)
+        bm, cm = (torch.randn((bsz, length, 1, nst), generator=g,
+                              device="cuda") * 0.3 for _ in range(2))
+        want, _ = ssd_scan(xs, dt, a, bm, cm, ch, torch.float32)
+        parts = [shd.lay_out(t, (None, "sp"), sp).shards
+                 for t in (xs, dt, bm, cm)]
+        got = torch.cat(ssm_sp.ssd_sequence_parallel(
+            *parts[:2], a, *parts[2:], ch), 1)
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        print(f"ssd_sequence_parallel, 4 shards, {label}: max |err| "
+              f"{err:.3e} vs the single-device SSD (max |y| "
+              f"{float(want.abs().max()):.3f}; bound 2e-4 x max(1, |y|))")
+        check(err < 2e-4 * scale, f"sequence-parallel SSD off by {err}")
+    # qwen2.5-3b's 36 layers in 4 pipeline stages, f32
+    cfg = dataclasses.replace(configs.get_config("qwen2.5-3b"),
+                              dtype=torch.float32, remat="none")
+    init = ParamInit(cfg, device="cuda",
+                     generator=torch.Generator("cuda").manual_seed(3))
+    layers = [DecoderLayer(init, cfg) for _ in range(cfg.n_layers)]
+    mb, seq, micro = 2, 128, 4
+    pos = torch.arange(seq, device="cuda").expand(mb, seq)
+    xin = torch.randn((micro, mb, seq, cfg.d_model), generator=g,
+                      device="cuda")
+
+    def stage_fn(stage_layers, h):
+        for layer in stage_layers:
+            h = layer(h, pos[:h.shape[0]], cfg)[0]
+        return h
+
+    pipe = pipeline_forward(stage_fn, make_mesh((4,), ("stage",)))
+    stages = split_stages(layers, 4)
+    params = [p for layer in layers for p in layer.parameters()]
+    y = pipe(stages, xin)
+    with torch.no_grad():
+        seq_y = torch.stack([stage_fn(layers, xin[i]) for i in range(micro)])
+    check(torch.equal(y.detach(), seq_y),
+          "the pipelined forward != the sequential one at equal microbatch")
+    posw = torch.arange(seq, device="cuda").expand(mb * micro, seq)
+
+    def whole_fn(h):
+        for layer in layers:
+            h = layer(h, posw, cfg)[0]
+        return h
+
+    yw = whole_fn(xin.reshape(micro * mb, seq, -1)).reshape(y.shape)
+    diff = (y - yw).detach().abs()
+    top = float(yw.detach().abs().max())
+    excess_f = float((diff - 2e-5 * yw.detach().abs()).max())
+    # The whole batch runs each GEMM on 4x the rows, which cuBLAS sums in
+    # another order; 36 random-weight layers carry that to ~1e-4 at
+    # |y| ~ 1e2, so elementwise 2e-5 (the reference's 8 tanh layers of
+    # 32) does not hold between two right results. The pipeline's own
+    # check is the bit-for-bit one above; the whole batch is held to
+    # 2e-5 of max |y|.
+    print(f"pipeline, 36 layers of qwen2.5-3b in 4 stages, {micro} "
+          f"microbatches of {mb} x {seq} (f32): bit for bit the sequential "
+          f"forward; the whole batch at once max |diff| "
+          f"{float(diff.max()):.3e} against max |y| {top:.3f} (bound "
+          f"2e-5 x max |y|; elementwise, the largest excess over "
+          f"2e-5*|y| + 2e-5 is {excess_f - 2e-5:.3e}, not gated)")
+    check(float(diff.max()) <= 2e-5 * top,
+          f"pipeline vs the whole batch: max |diff| {float(diff.max())}")
+    scale = float(yw.detach().pow(2).mean())
+    gp = torch.autograd.grad((y ** 2).mean() / scale, params)
+    gs = torch.autograd.grad((yw ** 2).mean() / scale, params)
+    worst = max(float(((a - b).abs() - 5e-4 * b.abs()).max())
+                for a, b in zip(gp, gs))
+    print(f"pipeline gradients of {len(params)} tensors vs the whole "
+          f"batch's: largest excess over 5e-4*|g| {worst:.3e} (atol 5e-5)")
+    check(worst <= 5e-5, f"pipeline gradients off: {worst}")
+    del layers, params, gp, gs, y, yw, stages
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the compressed all-reduce over 4 replicas, card against CPU
+    names = {"wq": (2048, 2048), "wk": (2048, 256), "bq": (2048,)}
+    grads = [{n: torch.randn(s, generator=g, device="cuda")
+              for n, s in names.items()} for _ in range(4)]
+    res = [EFState({n: torch.randn(s, generator=g, device="cuda") * 1e-3
+                    for n, s in names.items()}) for _ in range(4)]
+    for mode in ("int8", "bf16"):
+        m_c, e_c = compressed_psum(grads, res, mode)
+        m_h, e_h = compressed_psum(
+            [{n: t.cpu() for n, t in gr.items()} for gr in grads],
+            [EFState({n: t.cpu() for n, t in e.residual.items()})
+             for e in res], mode)
+        same = all(torch.equal(m_c[r][n].cpu(), m_h[r][n])
+                   and torch.equal(e_c[r].residual[n].cpu(),
+                                   e_h[r].residual[n])
+                   for r in range(4) for n in names)
+        check(same, f"compressed_psum ({mode}) on the card != on the CPU")
+        print(f"compressed_psum over 4 replicas ({mode}): means and "
+              f"residuals on the card bit for bit the CPU port's")
+
+
 def main() -> None:
     smi, peaks = card()
     print(f"== phase 1: card: {smi} ==")
@@ -3141,6 +3571,17 @@ def main() -> None:
         build.load(name)
     print(f"== phase 2: built {sorted(libs)} in "
           f"{time.perf_counter() - t0:.1f}s ==")
+    dry = start_dryrun()
+    try:
+        phases(smi, peaks, dry)
+    finally:  # a failed phase leaves no worker running
+        for proc, _ in dry[1]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def phases(smi: str, peaks, dry) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     stats: dict = {}
@@ -3173,6 +3614,10 @@ def main() -> None:
     run("phase 17 moe serving", phase_moe, smi, stats, free=True)
     run("phase 18 encoder", phase_encoder, smi, stats, free=True)
     run("phase 19 training", phase_train, smi, stats, free=True)
+    run("phase 20a dry run", phase_dryrun, dry, smi)
+    run("phase 20b roofline cells", phase_roofline, smi, peaks, stats,
+        free=True)
+    run("phase 20c sharded", phase_c2, smi, stats, free=True)
     print(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():
@@ -3208,7 +3653,10 @@ def main() -> None:
             # at phase 18's shape (its flash forward)
             **{key: {"launches": 0, **s[key][dname]}
                for key in ("hd112", "hd80", "group16", "group8",
-                           "hubert")}})
+                           "hubert")},
+            # phase 20's prefill cell's attention (S = 32768), bf16
+            **({"s32k": {"launches": 36, **s["s32k"]}}
+               if dname == "bfloat16" else {})})
     kid, source, replaces = CONV
     s = stats["conv1d"]
     kernels.append({

@@ -7,6 +7,9 @@ from __future__ import annotations
 
 import importlib
 
+from repro_torch.configs.shapes import (  # noqa: F401
+    SHAPES, ShapeCell, cell_supported, input_specs)
+
 ARCHS = {
     "internvl2-2b": "repro_torch.configs.internvl2_2b",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
@@ -33,3 +36,14 @@ def get_config(name: str):
 
 def get_smoke_config(name: str):
     return _module(name).smoke()
+
+
+def all_cells():
+    """Every (arch, shape) pair with its supported/skip status."""
+    out = []
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        for shape in SHAPES:
+            ok, why = cell_supported(cfg, shape)
+            out.append((arch, shape, ok, why))
+    return out

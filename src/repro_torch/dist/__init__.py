@@ -1,19 +1,35 @@
-"""Distributed execution: the in-process shard mesh and the mesh-aware
-stencil decomposition.
+"""Distributed execution: the in-process shard mesh, the sharding rules,
+the pipeline schedule and the mesh-aware stencil decomposition.
 
 * :mod:`repro_torch.dist.mesh` — :class:`ShardMesh`, the port's
   counterpart of ``jax.sharding.Mesh``: one process, every shard on a
   torch device from a list.
+* :mod:`repro_torch.dist.sharding` — logical-axis -> mesh-axis rule
+  tables, the tree/state/batch spec builders the launchers use, and the
+  in-process layouts (``lay_out``, ``shard_call``).
+* :mod:`repro_torch.dist.pipeline` — microbatched pipeline-parallel
+  schedule.
 * :mod:`repro_torch.dist.stencil` — depth-``t`` halo exchange running any
   :class:`~repro_torch.core.stencil.StencilSpec` per shard (the paper's
   §VII multi-card decomposition; entry point
   :func:`repro_torch.engine.run_distributed`).
 
-The reference's sharding rules and pipeline schedule (``repro.dist.
-sharding``, ``repro.dist.pipeline``) serve the sharded LM and are not
-ported yet.
+The reference's ``repro.dist._compat`` has no counterpart: it only moves
+``shard_map`` between jax versions.
 """
+from repro_torch.dist import pipeline, sharding  # noqa: F401
 from repro_torch.dist.mesh import ShardMesh  # noqa: F401
+from repro_torch.dist.sharding import (  # noqa: F401
+    ACT_RULES,
+    DEFAULT_RULES,
+    batch_shardings,
+    constrain,
+    pspec_for,
+    replicated,
+    state_shardings,
+    tree_shardings,
+    use_mesh,
+)
 from repro_torch.dist.stencil import (  # noqa: F401
     extended_shard_shape,
     make_phase_steps,

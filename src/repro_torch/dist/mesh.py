@@ -59,3 +59,4 @@ class ShardMesh:
                 raise IndexError(f"{name}={i} outside mesh {self.shape}")
             flat = flat * self.shape[name] + i
         return self.devices[flat]
+

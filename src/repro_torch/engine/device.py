@@ -3,8 +3,10 @@
 The port's copy of ``repro.engine.device``: the same :class:`DeviceModel`
 fields and the same four registered models with the same values, so a
 plan for ``tpu_v5e``, ``grayskull_e150`` or ``cpu_ref`` equals the JAX
-package's. :func:`detect` asks PyTorch instead of JAX: a CUDA card of
-compute capability (9, 0) is ``gpu_sm90``; anything else, or no CUDA, is
+package's. The port adds one field, ``dram_bytes``, the memory a chip
+holds, which the dry run's report tests a cell against (the reference's
+report hard-codes a v5e's 16 GiB). :func:`detect` asks PyTorch instead
+of JAX: a CUDA card of compute capability (9, 0) is ``gpu_sm90``; anything else, or no CUDA, is
 ``cpu_ref``.
 
 All numbers are *modeling constants* (vendor peaks, paper-quoted
@@ -65,6 +67,9 @@ class DeviceModel:
     # whose inter-device traffic must bounce through the host, so halo
     # exchange is billed at ``inter_node_bw`` instead.
     mesh_direct_links: bool = True
+    # Device memory the chip holds, in bytes (0: not modeled); the port's
+    # own field, not in the reference's model.
+    dram_bytes: int = 0
 
     @property
     def fast_memory_mib(self) -> float:
@@ -92,6 +97,18 @@ class DeviceModel:
         read each other's memory (``mesh_direct_links=False``)."""
         return self.interconnect_bw if self.mesh_direct_links \
             else self.inter_node_bw
+
+    def as_roofline_hw(self) -> dict:
+        """The constants dict :func:`repro_torch.roofline.analyze` reads
+        (the reference's keys, plus ``hbm_bytes``, the capacity)."""
+        return {
+            "peak_flops": self.peak_flops,
+            "hbm_bw": self.dram_bw,
+            "ici_bw": self.interconnect_bw,
+            "dci_bw": self.inter_node_bw,
+            "tdp_watts": self.tdp_watts,
+            "hbm_bytes": self.dram_bytes,
+        }
 
     def describe(self) -> str:
         return (f"{self.name}: {self.cores} core(s) x "
@@ -175,6 +192,7 @@ TPU_V5E = register_device(DeviceModel(
     noc_bw=0.0,                # monolithic chip: DRAM bw is the constraint
     txn_overhead_s=1e-6,       # the legacy benchmarks TXN_OVERHEAD_S value
     core_grid=(1, 1),
+    dram_bytes=16 * 2**30,     # v5e HBM, the reference report's 16.0 GiB
 ))
 
 GRAYSKULL_E150 = register_device(DeviceModel(
@@ -207,6 +225,7 @@ GRAYSKULL_E150 = register_device(DeviceModel(
     txn_overhead_s=1.05e-7,
     core_grid=(9, 12),         # the 108 usable cores of the e150
     mesh_direct_links=False,   # cards can't read each other's DRAM (§VII)
+    dram_bytes=8 * 2**30,      # 8 GB LPDDR4
 ))
 
 GPU_SM90 = register_device(DeviceModel(
@@ -230,6 +249,7 @@ GPU_SM90 = register_device(DeviceModel(
     noc_bw=25e9,               # ~per-SM share of HBM at full occupancy
     txn_overhead_s=2e-7,
     core_grid=(11, 12),
+    dram_bytes=80 * 2**30,     # H100 SXM: 80 GB HBM3 (data sheet)
 ))
 
 CPU_REF = register_device(DeviceModel(

@@ -122,6 +122,38 @@ def port_names(tree: dict, cfg) -> dict:
     return flat
 
 
+def _flatten_axes(tree, prefix=""):
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _flatten_axes(val, name + ".")
+        else:
+            yield name, tuple(val)
+
+
+def port_axes(specs: dict, cfg) -> dict:
+    """The JAX model's logical-axes tree ``specs`` (the second result of
+    its ``init``) under the port's parameter names, as
+    ``model.logical_axes()`` gives them: a stacked leaf's leading axes
+    (``("layers",)``, a hybrid's ``("groups", None)``) are checked and
+    dropped, and the rest holds for each layer."""
+    stacked = _stacked_axes(cfg)
+    flat = dict(_flatten_axes({k: v for k, v in specs.items()
+                               if k not in stacked}))
+    lead_axes = {"layers": ("layers",), "groups": ("groups", None),
+                 "tail": ("layers",)}
+    for key, (_, lead) in stacked.items():
+        for name, axes in _flatten_axes(specs.get(key, {})):
+            want = lead_axes[key]
+            if axes[:len(want)] != want:
+                raise ValueError(f"{key}.{name}: axes {axes} do not start "
+                                 f"with {want}")
+            for idx in np.ndindex(*lead):
+                flat[".".join((key, *map(str, idx), name))] = \
+                    axes[len(want):]
+    return flat
+
+
 def lm_params_from_jax(params: dict, cfg, *, device="cuda"):
     """The port's model for ``cfg`` holding the JAX parameter tree
     ``params`` (numpy leaves; stacked subtrees as the module note says)."""

@@ -37,6 +37,18 @@ SOURCE_FLAGS = {"stencil": ("-ftz=true",)}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
+#: Launch observers, innermost last: ``hlo_analysis.CostCounter`` adds
+#: itself while it runs. A wrapper with a cost formula (K8, K7) hands its
+#: call to the innermost one, ``observer().kernel(name, args, run)``;
+#: every launch asks :func:`load` for its library, which first calls
+#: ``observer().launch(name)``, so an observer sees every launch.
+OBSERVERS: list = []
+
+
+def observer():
+    """The innermost launch observer, or None."""
+    return OBSERVERS[-1] if OBSERVERS else None
+
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a source."""
@@ -104,7 +116,11 @@ def build_all() -> dict[str, pathlib.Path]:
 def load(name: str = "stencil", csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
     """The loaded library for ``name``, built first if needed. ``csrc`` is
     the source directory: another checkout's, to compare two versions of a
-    kernel (its library is named by its own source's hash)."""
+    kernel (its library is named by its own source's hash). Every launch
+    asks for its library here; the innermost observer is told first."""
+    obs = observer()
+    if obs is not None:
+        obs.launch(name)
     key = name if csrc == CSRC else f"{name}@{csrc}"
     lib = _LIBS.get(key)
     if lib is None:

@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import refuse_grad
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
@@ -107,8 +108,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     # 16-byte vectors along D where every row starts 16-byte aligned.
     vec = int(d * x.element_size() % 16 == 0
               and all(p % 16 == 0 for p in ptrs))
-    from repro_torch.kernels.build import load
-    err = load("conv1d").repro_conv1d(
+    err = build.load("conv1d").repro_conv1d(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
         out.data_ptr(), _DTYPE_CODE[x.dtype], bsz, length, d, w.shape[0],
         bl, vec, torch.cuda.current_stream(x.device).cuda_stream)
@@ -125,11 +125,22 @@ def conv1d_depthwise_causal(x: torch.Tensor, w: torch.Tensor,
 
     Single-device kernel (``ops.conv1d`` is the public entry).
     Forward only: raises ``GradientError`` when asked for a gradient.
+    On ``meta`` tensors it returns an output of the result's shape; under
+    ``hlo_analysis``'s counter the call is counted by its formula.
     """
     refuse_grad("the depthwise causal conv (K7)", x, w, b)
     _check(x, w, b)
     if bl < 1:
         raise ValueError(f"bl must be positive; got {bl}")
+    obs = build.observer()
+    if obs is not None:
+        return obs.kernel("conv1d", (x, w, b), lambda: _route(x, w, b, bl))
+    return _route(x, w, b, bl)
+
+
+def _route(x, w, b, bl: int) -> torch.Tensor:
+    if x.device.type == "meta":
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return conv1d_depthwise_causal_plain(x, w, b)
     if x.device.type != "cuda":

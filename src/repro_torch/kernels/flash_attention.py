@@ -47,6 +47,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import build
+
 NEG_INF = -1e30
 
 #: Kernel launches since the last :func:`reset_launch_counts`.
@@ -165,14 +167,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{MAX_GROUP} heads; got {h // kh}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the flash kernel takes contiguous q, k, v")
-    from repro_torch.kernels.build import load
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("the flash kernels take 16-byte aligned q, k, v "
                          "(their TMA and cp.async loads need them)")
     wgmma = q.dtype == torch.bfloat16  # the route is chosen by dtype
     lib = "flash_attention_sm90" if wgmma else "flash_attention"
     out = torch.empty_like(q)
-    err = getattr(load(lib), f"repro_{lib}")(
+    err = getattr(build.load(lib), f"repro_{lib}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
         h, kh, hd, int(causal), hd ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -190,9 +191,22 @@ def flash_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Single-device kernel (``ops.flash_attention`` is the public entry).
     Forward only: raises :class:`GradientError` when asked for a gradient.
+    On ``meta`` tensors it returns an output of the result's shape (a
+    shape-only run, as the dry run's); under ``hlo_analysis``'s counter
+    the call is counted by its formula.
     """
     refuse_grad("flash attention (K8)", q, k, v)
     _blocks(q, k, v, bq, bk)
+    obs = build.observer()
+    if obs is not None:
+        return obs.kernel("flash_attention", (q, k, causal),
+                          lambda: _route(q, k, v, causal, bq, bk))
+    return _route(q, k, v, causal, bq, bk)
+
+
+def _route(q, k, v, causal: bool, bq: int, bk: int) -> torch.Tensor:
+    if q.device.type == "meta":
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return flash_attention_local_plain(q, k, v, causal=causal, bq=bq,
                                            bk=bk)

@@ -2,10 +2,11 @@
 
 ``jacobi_step(u, version=...)`` is the paper-facing entry point of the
 stencil kernels: ``version`` selects the kernel generation (or the plain
-reference), each an engine policy. :func:`flash_attention` (K8) and
-:func:`conv1d` (K7) run on one device. The reference's ``shard_map``
-branch of ``flash_attention`` (batch over the data axis, KV heads over
-the model axis) comes with the sharded LM slice (ROADMAP Queue 1, C2).
+reference), each an engine policy. :func:`conv1d` (K7) runs on one
+device; :func:`flash_attention` (K8) too, unless a mesh is active
+(``dist.sharding.use_mesh``): then it splits batch over data(/pod) and KV
+heads over model and runs K8 on each shard, as the reference's
+``shard_map`` branch does.
 """
 from __future__ import annotations
 
@@ -65,6 +66,22 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, bq: int = 512,
                     bk: int = 512) -> torch.Tensor:
-    """Fused attention forward on one device (K8 on a CUDA tensor).
+    """Fused attention forward, K8 on a CUDA tensor; sharded when a mesh
+    is active: k/v by ``pspec_for(("batch", None, "kv_heads", None))``
+    under ``ACT_RULES``, q's heads mirroring the KV heads' split (a q
+    shard must own whole GQA groups), K8 on each shard's blocks on its
+    device (``dist.sharding.shard_call``), the result put together.
     q (B,Sq,H,hd), k/v (B,Sk,K,hd) -> (B,Sq,H,hd)."""
-    return flash_attention_local(q, k, v, causal=causal, bq=bq, bk=bk)
+    from repro_torch.dist.sharding import (ACT_RULES, _context_mesh,
+                                           pspec_for, shard_call)
+
+    def fn(a, b_, c):
+        return flash_attention_local(a, b_, c, causal=causal, bq=bq, bk=bk)
+
+    mesh = _context_mesh()
+    if mesh is None:
+        return fn(q, k, v)
+    kvspec = pspec_for(("batch", None, "kv_heads", None), k.shape, mesh,
+                       ACT_RULES)
+    qspec = (kvspec[0], None, kvspec[2], None)
+    return shard_call(fn, mesh, (q, k, v), (qspec, kvspec, kvspec), qspec)

@@ -33,6 +33,10 @@ class KVCache(NamedTuple):
 class GQA(Params):
     """Projections of grouped-query attention (with QKV bias for qwen)."""
 
+    AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+            "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",)}
+
     def __init__(self, init: ParamInit, cfg: ModelConfig,
                  in_dim: int | None = None):
         super().__init__()

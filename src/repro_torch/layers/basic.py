@@ -15,6 +15,8 @@ from repro_torch.models.base import ModelConfig, ParamInit, Params
 
 
 class RMSNorm(Params):
+    AXES = {"scale": (None,)}
+
     def __init__(self, init: ParamInit, dim: int):
         super().__init__()
         self.scale = init.ones((dim,))
@@ -31,6 +33,8 @@ def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 class LayerNorm(Params):
+    AXES = {"scale": (None,), "bias": (None,)}
+
     def __init__(self, init: ParamInit, dim: int):
         super().__init__()
         self.scale = init.ones((dim,))
@@ -51,6 +55,9 @@ def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 class SwiGLU(Params):
+    AXES = {"gate": ("embed", "mlp"), "up": ("embed", "mlp"),
+            "down": ("mlp", "embed")}
+
     def __init__(self, init: ParamInit, d: int, f: int,
                  d_out: int | None = None):
         super().__init__()
@@ -71,6 +78,9 @@ def swiglu(p: SwiGLU, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 class GeluMLP(Params):
+    AXES = {"up": ("embed", "mlp"), "up_b": ("mlp",),
+            "down": ("mlp", "embed"), "down_b": (None,)}
+
     def __init__(self, init: ParamInit, d: int, f: int):
         super().__init__()
         self.up = init.normal((d, f))
@@ -94,11 +104,13 @@ class Projection(nn.Module):
     """``x @ w (+ b)`` with the reference's parameter names ``w`` and
     ``b`` (the VLM's ``vision_proj``, the encoder's ``feature_proj`` and
     ``head``). ``w`` would shadow :meth:`Params.w`, so this is a plain
-    module, cast at each use."""
+    module, cast at each use. ``axes`` are ``w``'s logical axes (``b``'s
+    are ``(None,)``), which differ between those uses."""
 
     def __init__(self, init: ParamInit, d_in: int, d_out: int,
-                 bias: bool = True):
+                 bias: bool = True, axes: tuple = (None, "embed")):
         super().__init__()
+        self.AXES = {"w": axes, "b": (None,)}
         self.w = init.normal((d_in, d_out))
         if bias:
             self.b = init.zeros((d_out,))
@@ -110,6 +122,8 @@ class Projection(nn.Module):
 
 class Embedding(Params):
     """The token table (padded vocab) and, when untied, the LM head."""
+
+    AXES = {"table": ("vocab", "embed"), "head": ("embed", "vocab")}
 
     def __init__(self, init: ParamInit, cfg: ModelConfig):
         super().__init__()

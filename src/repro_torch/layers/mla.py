@@ -38,6 +38,11 @@ class MLA(Params):
     its shared rope key (``kv_down``, ``kv_norm``), its up-projections
     (``k_up``, ``v_up``) and ``wo``."""
 
+    AXES = {"q_down": ("embed", None), "q_up": (None, "heads"),
+            "q_proj": ("embed", "heads"), "kv_down": ("embed", None),
+            "k_up": (None, "heads"), "v_up": (None, "heads"),
+            "wo": ("heads", "embed")}
+
     def __init__(self, init: ParamInit, cfg: ModelConfig):
         super().__init__()
         d, h = cfg.d_model, cfg.n_heads

@@ -29,6 +29,10 @@ from repro_torch.models.base import ModelConfig, ParamInit, Params
 class MoE(Params):
     """The router (d, E) and the experts' SwiGLU slabs stacked on E."""
 
+    AXES = {"router": ("embed", None), "gate": ("expert", "embed", "mlp"),
+            "up": ("expert", "embed", "mlp"),
+            "down": ("expert", "mlp", "embed")}
+
     def __init__(self, init: ParamInit, cfg: ModelConfig):
         super().__init__()
         d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts

@@ -39,6 +39,13 @@ def conv_dim(cfg: ModelConfig) -> int:
 class SSM(Params):
     """The Mamba2 block's parameters, named as the reference's tree."""
 
+    AXES = {"z_proj": ("embed", "ssm_inner"),
+            "xbc_proj": ("embed", "ssm_inner"),
+            "dt_proj": ("embed", "heads"), "conv_w": (None, "ssm_inner"),
+            "conv_b": ("ssm_inner",), "A_log": ("heads",), "D": ("heads",),
+            "dt_bias": ("heads",), "norm_scale": (None,),
+            "out_proj": ("ssm_inner", "embed")}
+
     def __init__(self, init: ParamInit, cfg: ModelConfig):
         super().__init__()
         d, di, h, k = cfg.d_model, cfg.d_inner, cfg.ssm_heads, cfg.ssm_conv

@@ -186,7 +186,13 @@ def with_config(model: nn.Module, cfg: ModelConfig,
 
 
 class Params(nn.Module):
-    """A module whose parameters are read through :meth:`w`."""
+    """A module whose parameters are read through :meth:`w`.
+
+    ``AXES`` names each parameter's logical axes (the reference's
+    ``ParamBuilder`` specs: ``"embed"``, ``"heads"``, ...), one entry a
+    dimension; :func:`logical_axes` collects them for a model."""
+
+    AXES: dict[str, tuple] = {}
 
     def __init__(self):
         super().__init__()
@@ -207,3 +213,24 @@ class Params(nn.Module):
         if hit is None or hit[0] != key:
             hit = self._cast[(name, dtype)] = (key, p.detach().to(dtype))
         return hit[1]
+
+
+def logical_axes(model: nn.Module) -> dict[str, tuple]:
+    """The reference's logical axes of every parameter of ``model``, keyed
+    by the port's parameter name (``layers.3.attn.wq``).
+
+    The reference stacks a family's layers and prepends ``"layers"`` (a
+    hybrid's groups ``("groups", None)``) to each stacked leaf's axes; the
+    port keeps one tensor a layer, so its axes are the reference's without
+    the stacked prefix, one entry for each of the tensor's dimensions.
+    ``dist.sharding`` resolves them against a mesh."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        axes = getattr(mod, "AXES", {})
+        for name, p in mod.named_parameters(prefix=prefix, recurse=False):
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf not in axes or len(axes[leaf]) != p.dim():
+                raise KeyError(f"{name} {tuple(p.shape)}: no logical axes "
+                               f"of its rank in {type(mod).__name__}.AXES")
+            out[name] = tuple(axes[leaf])
+    return out

@@ -20,7 +20,8 @@ from torch import nn
 
 from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, attention
-from repro_torch.models.base import ModelConfig, ParamInit, with_config
+from repro_torch.models.base import (ModelConfig, ParamInit, logical_axes,
+                                     with_config)
 from repro_torch.models.lm import detached, remat
 
 
@@ -62,9 +63,11 @@ class EncoderModel(nn.Module):
                                              cfg.d_model)
         self.ln_f = basic.LayerNorm(init, cfg.d_model)
         self.head = basic.Projection(init, cfg.d_model, cfg.padded_vocab,
-                                     bias=False)
+                                     bias=False, axes=("embed", "vocab"))
         self.layers = nn.ModuleList(EncoderLayer(init, cfg)
                                     for _ in range(cfg.n_layers))
+
+    logical_axes = logical_axes
 
     @property
     def device(self) -> torch.device:

@@ -35,7 +35,8 @@ from torch import nn
 from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, KVCache, attention, init_kv_cache
 from repro_torch.layers.ssm import SSMCache, init_ssm_cache
-from repro_torch.models.base import ModelConfig, ParamInit, with_config
+from repro_torch.models.base import (ModelConfig, ParamInit, logical_axes,
+                                     with_config)
 from repro_torch.models.lm import ce_from_hidden, detached, remat
 from repro_torch.models.ssm_lm import MambaLayer
 
@@ -71,6 +72,8 @@ class HybridLM(nn.Module):
             for _ in range(self.n_groups))
         self.tail = nn.ModuleList(MambaLayer(init, cfg)
                                   for _ in range(self.n_tail))
+
+    logical_axes = logical_axes
 
     @property
     def device(self) -> torch.device:
@@ -179,3 +182,19 @@ class HybridLM(nn.Module):
             cache["ssm_tail"] = init_ssm_cache(cfg, batch, layers=self.n_tail,
                                                device=dev)
         return cache
+
+    def cache_axes(self) -> dict:
+        """The cache's logical axes, keyed as the cache (the reference's)."""
+        axes = {
+            "kv": KVCache(k=("groups", "batch", "kv_seq", "kv_heads", None),
+                          v=("groups", "batch", "kv_seq", "kv_heads", None),
+                          length=("groups",)),
+            "ssm_groups": SSMCache(
+                state=("groups", None, "batch", None, "heads", None, None),
+                conv=("groups", None, "batch", None, "ssm_inner")),
+        }
+        if self.n_tail:
+            axes["ssm_tail"] = SSMCache(
+                state=("layers", "batch", None, "heads", None, None),
+                conv=("layers", "batch", None, "ssm_inner"))
+        return axes

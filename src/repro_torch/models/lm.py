@@ -30,7 +30,8 @@ from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, KVCache, attention, init_kv_cache
 from repro_torch.layers.mla import MLA, MLACache, init_mla_cache, mla_attention
 from repro_torch.layers.moe import MoE, moe_ffn
-from repro_torch.models.base import ModelConfig, ParamInit, with_config
+from repro_torch.models.base import (ModelConfig, ParamInit, logical_axes,
+                                     with_config)
 
 Cache = KVCache | MLACache
 
@@ -115,6 +116,8 @@ class DecoderLM(nn.Module):
                                                 cfg.d_model)
         self.layers = nn.ModuleList(DecoderLayer(init, cfg)
                                     for _ in range(cfg.n_layers))
+
+    logical_axes = logical_axes
 
     @property
     def device(self) -> torch.device:
@@ -205,6 +208,17 @@ class DecoderLM(nn.Module):
             else init_kv_cache
         return init(self.cfg, batch, max_len, layers=self.cfg.n_layers,
                     device=self.device)
+
+    def cache_axes(self) -> Cache:
+        """The cache's logical axes, the reference's (``dist.sharding``
+        resolves them); ``length`` is a Python int here."""
+        if self.cfg.attn_type == "mla":
+            return MLACache(c_kv=("layers", "batch", "kv_seq", None),
+                            k_rope=("layers", "batch", "kv_seq", None),
+                            length=("layers",))
+        return KVCache(k=("layers", "batch", "kv_seq", "kv_heads", None),
+                       v=("layers", "batch", "kv_seq", "kv_heads", None),
+                       length=("layers",))
 
 
 def cache_length(cache: Any) -> int:

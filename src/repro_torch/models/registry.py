@@ -38,3 +38,16 @@ def count_params(cfg: ModelConfig) -> int:
     model = build_model(cfg, device="meta")
     return sum(p.numel() for p in model.parameters())
 
+
+
+def count_active_params(cfg: ModelConfig) -> int:
+    """Active (per-token) parameters: differs from the total only for MoE,
+    whose tokens each run ``experts_per_token`` of ``n_experts`` SwiGLU
+    slabs (the reference's count)."""
+    total = count_params(cfg)
+    if not cfg.n_experts:
+        return total
+    per_layer_expert = 3 * cfg.d_model * cfg.d_ff  # swiglu slab per expert
+    inactive = (cfg.n_experts - cfg.experts_per_token) * per_layer_expert \
+        * cfg.n_layers
+    return total - inactive

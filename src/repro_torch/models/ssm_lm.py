@@ -18,7 +18,8 @@ from torch import nn
 
 from repro_torch.layers import basic
 from repro_torch.layers.ssm import SSM, SSMCache, init_ssm_cache, ssm_block
-from repro_torch.models.base import ModelConfig, ParamInit, with_config
+from repro_torch.models.base import (ModelConfig, ParamInit, logical_axes,
+                                     with_config)
 from repro_torch.models.lm import ce_from_hidden, detached, remat
 
 
@@ -52,6 +53,8 @@ class MambaLM(nn.Module):
         self.ln_f = basic.RMSNorm(init, cfg.d_model)
         self.layers = nn.ModuleList(MambaLayer(init, cfg)
                                     for _ in range(cfg.n_layers))
+
+    logical_axes = logical_axes
 
     @property
     def device(self) -> torch.device:
@@ -104,3 +107,8 @@ class MambaLM(nn.Module):
         ``max_len``."""
         return init_ssm_cache(self.cfg, batch, layers=self.cfg.n_layers,
                               device=self.device)
+
+    def cache_axes(self) -> SSMCache:
+        """The cache's logical axes, the reference's."""
+        return SSMCache(state=("layers", "batch", None, "heads", None, None),
+                        conv=("layers", "batch", None, "ssm_inner"))

@@ -1,18 +1,19 @@
-"""Fault tolerance: checkpoint/restart and straggler detection (twin of
-``repro.train.fault``).
+"""Fault tolerance: checkpoint/restart, straggler detection and elastic
+re-mesh (twin of ``repro.train.fault``).
 
 The failure model: (a) a step raises (device error, preemption signal),
-(b) a host silently slows down (straggler). ``FaultTolerantRunner``
-handles both around an arbitrary step function: periodic async
+(b) a host silently slows down (straggler), (c) a slice disappears and
+the job must continue on fewer devices. ``FaultTolerantRunner`` handles
+(a) and (b) around an arbitrary step function: periodic async
 checkpoints; restore-and-retry on step failure (bounded retries); EWMA
-step-time z-score straggler flagging with a mitigation callback. Where
+step-time z-score straggler flagging with a mitigation callback;
+:func:`remesh_state` re-lays a train state out onto another mesh (c). Where
 the reference calls ``block_until_ready`` on the step's first metric,
 the runner synchronizes that metric's device, so a step's time is its
 device time too. Before it restores after a failure, the runner waits
 for a checkpoint still being written, so the retry starts from the
 newest complete one (the reference reads whatever is on disk at that
-moment). The reference's ``remesh_state`` (elastic re-mesh) belongs to
-the sharded slice (ROADMAP Queue 1, C2).
+moment).
 """
 from __future__ import annotations
 
@@ -142,3 +143,25 @@ class FaultTolerantRunner:
             step += 1
         self.ckptr.wait()
         return self.state
+
+
+def remesh_state(state: Any, new_mesh, specs, rules=None) -> Any:
+    """Re-lay a train state out onto ``new_mesh`` (elastic re-scale).
+
+    Works for scale-down (lost shards) and scale-up: every leaf laid out
+    on a mesh (a ``dist.sharding.Sharded``) is first put back together,
+    then the specs are rebuilt from the parameters' logical axes
+    (``specs``, as ``model.logical_axes()`` gives them) by
+    ``state_shardings`` against the new mesh, and each tensor leaf is laid
+    out by its spec, its blocks copied to the new shards' devices. Leaves
+    that are not tensors stay as they are. The reference moves each leaf
+    through the host (``device_get``, ``device_put``); the port copies
+    device to device.
+    """
+    from repro_torch.dist.sharding import (Sharded, _map, lay_out,
+                                           state_shardings)
+    whole = _map(lambda x, _: x.full() if isinstance(x, Sharded) else x,
+                 state)
+    sh = state_shardings(whole, specs, new_mesh, rules)
+    return _map(lambda x, s: lay_out(x, s, new_mesh)
+                if isinstance(x, torch.Tensor) else x, whole, sh)

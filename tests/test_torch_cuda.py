@@ -1187,3 +1187,70 @@ def test_smoke_decoders_of_slice_13_on_the_card(cuda):
                                           "image_embeds": img})
             assert logits.shape == (2, 64, cfg.padded_vocab)
             assert bool(logits.isfinite().all())
+
+
+def test_sharded_flash_and_conv_halo_on_the_card(cuda):
+    """K8 under a (2, 2) data x model mesh of the card and K7 after the
+    conv halo on 4 sequence shards, bit for bit their unsharded calls."""
+    from repro_torch.core import ssm_sp
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.mesh import ShardMesh
+    from repro_torch.kernels import conv1d as TK
+    from repro_torch.kernels import flash_attention as TF
+    from repro_torch.kernels import ops
+    g = torch.Generator(cuda).manual_seed(0)
+    q = torch.randn((4, 256, 8, 64), generator=g, device=cuda).bfloat16()
+    k = torch.randn((4, 256, 2, 64), generator=g, device=cuda).bfloat16()
+    whole = TF.flash_attention_local(q, k, k)
+    TF.reset_launch_counts()
+    with shd.use_mesh(ShardMesh((2, 2), ("data", "model"))):
+        got = ops.flash_attention(q, k, k)
+    assert TF.LAUNCHES["flash_attention"] == 4
+    assert torch.equal(got, whole)
+    x = torch.randn((2, 256, 96), generator=g, device=cuda)
+    w = torch.randn((4, 96), generator=g, device=cuda)
+    mesh = ShardMesh((4,), ("sp",))
+    ext = ssm_sp.conv_halo_exchange(
+        shd.lay_out(x, (None, "sp"), mesh).shards, 4)
+    TK.reset_launch_counts()
+    got = torch.cat([TK.conv1d_depthwise_causal(e, w)[:, 3:] for e in ext],
+                    1)
+    assert TK.LAUNCHES["conv1d"] == 4
+    assert torch.equal(got, TK.conv1d_depthwise_causal(x, w))
+
+
+def test_cost_counter_on_the_card(cuda):
+    """Under the counter K8 launches and is counted by its formula; a
+    stencil kernel, which has none, raises at its launch."""
+    from repro_torch import hlo_analysis as H
+    from repro_torch.kernels import flash_attention as TF
+    q = torch.randn((1, 256, 4, 64), device=cuda).bfloat16()
+    TF.reset_launch_counts()
+    with H.CostCounter() as ctr:
+        out = TF.flash_attention_local(q, q, q)
+    assert TF.LAUNCHES["flash_attention"] == 1
+    assert ctr.cost.kernels == {"flash_attention": 1}
+    assert ctr.cost.dot_flops == H.flash_cost(q, q, True)[0]
+    assert out.shape == q.shape
+    u = TS.make_laplace_problem(30, 62, device=cuda)
+    with pytest.raises(H.UncountedKernelError):
+        with H.CostCounter():
+            TE.step(u, TS.jacobi_2d_5pt(), policy="rowchunk")
+
+
+def test_compressed_psum_card_equals_cpu(cuda):
+    from repro_torch.train.compression import EFState, compressed_psum
+    g = torch.Generator(cuda).manual_seed(0)
+    grads = [{"w": torch.randn((64, 32), generator=g, device=cuda)}
+             for _ in range(4)]
+    res = [EFState({"w": torch.randn((64, 32), generator=g, device=cuda)
+                    * 1e-3}) for _ in range(4)]
+    for mode in ("int8", "bf16"):
+        m_c, e_c = compressed_psum(grads, res, mode)
+        m_h, e_h = compressed_psum(
+            [{"w": d["w"].cpu()} for d in grads],
+            [EFState({"w": e.residual["w"].cpu()}) for e in res], mode)
+        for r in range(4):
+            assert torch.equal(m_c[r]["w"].cpu(), m_h[r]["w"])
+            assert torch.equal(e_c[r].residual["w"].cpu(),
+                               e_h[r].residual["w"])
