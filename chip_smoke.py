@@ -184,7 +184,21 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     overlap on, off), each bit for bit the single-device rowchunk solve;
     then a traced run of the main path (bf16, ``(4,)``, overlap off and
     on), bit for bit the untraced one, whose spans ``reconcile`` joins
-    against the bill;
+    against the bill.
+    13b: one process a shard. Four ranks share the card over gloo
+    (``repro_torch.dist.process.spawn``: ``torch.multiprocessing`` and a
+    ``FileStore`` in a temporary directory; the halos staged through
+    pinned host buffers), each running the same call over a
+    ``ProcessMesh``, ``(4,)`` and ``(2, 2)``, bf16 and f32: every rank's
+    grid ``torch.equal`` to its single-device ``engine.run`` and (rank 0)
+    the in-process mesh, 125 K1 and 3 K2 a rank (500 and 12 in all,
+    counters zeroed just before the call on each rank), the wall the
+    median of three (a check of the transport, not scaling: the halos
+    cross the host). Then ``launch.solve --devices 4 --dist-backend gloo
+    --check`` under ``torch.distributed.run`` (four ranks on the card).
+    13c, only with two cards or more: the in-process mesh over distinct
+    cards (its default layout) and NCCL ranks one a card, held to the
+    same checks; with one card a line says it was not run;
 14. the Grayskull e150 model on the card (``repro_torch.backends``): the
     backends smoke; at the paper's grid the f32 row-major and bf16
     tilized programs of every policy refused by the model's 1.5 MiB
@@ -473,16 +487,20 @@ def grid(spec: StencilSpec, dtype, seed: int) -> torch.Tensor:
 
 
 def bound_ms(policy: str, spec: StencilSpec, u: torch.Tensor, t: int,
-             peaks, unfused: bool = False) -> tuple[float, str]:
-    """Least time for the function: each input byte read once and each
-    output byte written once, against the f32 operations it must do at
-    the published peak, which counts a fused multiply-add as two; with
-    ``unfused`` at half that rate, since the kernels must issue each
-    multiply and add alone to stay bit for bit (no contraction)."""
+             peaks, unfused: bool = False,
+             mask: torch.Tensor | None = None) -> tuple[float, str]:
+    """Least time for the function: each input byte (the grid, and the
+    pin ``mask`` when one is given) read once and each output byte
+    written once, against the f32 operations it must do at the published
+    peak, which counts a fused multiply-add as two; with ``unfused`` at
+    half that rate, since the kernels must issue each multiply and add
+    alone to stay bit for bit (no contraction)."""
     bw, flops = peaks.bw, peaks.f32 / (2 if unfused else 1)
     r = spec.radius
     hi, wi = u.shape[-2] - 2 * r, u.shape[-1] - 2 * r
     nbytes = u.numel() * u.element_size() + hi * wi * u.element_size()
+    if mask is not None:
+        nbytes += mask.numel() * mask.element_size()
     ops = (2 * spec.taps - 1) * hi * wi * (t if policy == "temporal" else 1)
     b_ms, o_ms = nbytes / bw * 1e3, ops / flops * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
@@ -600,7 +618,10 @@ def phase_kernels(peaks, stats) -> None:
             u = grid(spec, dtype, seed=len(spec_name))
             out = torch.empty_like(u)
             engine.policies.copy_ring(u, out, spec.radius)
-            mask = torch.rand(u.shape, device="cuda") < 0.01
+            # uint8 of the grid's shape: the form the distributed
+            # executor hands K1, so no conversion is timed with it
+            mask = (torch.rand(u.shape, device="cuda") < 0.01).to(
+                torch.uint8)
             cases = [(p, {}) for p in ("rowchunk", "dbuf", "shifted")]
             cases += [("temporal", {"t": T}), ("temporal", {"t": T,
                                                            "mask": mask})]
@@ -651,8 +672,9 @@ def time_k1(spec_name, spec, dname, u, out, kw, peaks, s) -> None:
     k_ms = device_ms(lambda: engine.stencil_temporal(u, spec, out=out,
                                                      **kw))
     g_ms = general_k1(spec, u, mask)
-    b_ms, b_by = bound_ms("temporal", spec, u, T, peaks)
-    nc_ms, nc_by = bound_ms("temporal", spec, u, T, peaks, unfused=True)
+    b_ms, b_by = bound_ms("temporal", spec, u, T, peaks, mask=mask)
+    nc_ms, nc_by = bound_ms("temporal", spec, u, T, peaks, unfused=True,
+                            mask=mask)
     label = "temporal" + (" masked" if mask is not None else "")
     row = {"ms": k_ms, "general_ms": g_ms, "bound_ms": b_ms,
            "bound_by": b_by, "bound_nc_ms": nc_ms, "bound_nc_by": nc_by}
@@ -2283,6 +2305,214 @@ def phase_dist(smi: str, stats) -> None:
         print(rep.describe())
 
 
+def rank_meshes(world: int) -> dict:
+    """The process meshes phase 13b/c runs on ``world`` ranks: the row
+    mesh, and a 2-D one where ``world`` splits so."""
+    meshes = {f"({world},)": ((world,), ("x",))}
+    if world >= 4 and world % 2 == 0:
+        meshes[f"(2, {world // 2})"] = ((2, world // 2), ("x", "y"))
+    return meshes
+
+
+def rank_dist(rank: int, out_dir: str, reps: int) -> None:
+    """One rank of phase 13b/c (started by ``dist.process.spawn``): on each
+    of :func:`rank_meshes`, in bf16 and f32, the main path over a
+    ``ProcessMesh`` held to this rank's single-device ``engine.run`` (and,
+    on rank 0, the in-process mesh on its card), its launches counted, its
+    wall timed ``reps`` times behind a barrier; one JSON file a rank."""
+    import torch.distributed as tdist
+    from repro_torch.dist import ProcessMesh, ShardMesh
+    spec = jacobi_2d_5pt()
+    res = {}
+    for mname, (shape, axes) in rank_meshes(tdist.get_world_size()).items():
+        mesh = ProcessMesh(shape, axes)
+        dev = mesh.device_here
+        for dname, dtype in DTYPES.items():
+            u0 = make_laplace_problem(NY, NX, dtype=dtype, device=dev)
+            sched, _, _ = engine.plan_distributed(
+                u0.shape, dtype, spec, mesh=mesh, policy="auto", iters=ITERS,
+                t=T)
+
+            def call(overlap=None):
+                return engine.run_distributed(u0, spec, mesh=mesh,
+                                              policy="auto", iters=ITERS, t=T,
+                                              overlap=overlap)
+            solo = engine.run(u0, spec, policy="temporal", iters=ITERS, t=T)
+            call()  # warm
+            out, counts = counted(call)
+            k1 = dict(engine.TEMPORAL_VARIANTS)
+            inproc = None
+            if mesh.rank == 0:
+                inproc = torch.equal(out, engine.run_distributed(
+                    u0, spec, mesh=ShardMesh(shape, axes, [dev] * len(
+                        mesh.devices)), policy="auto", iters=ITERS, t=T))
+            walls = []
+            for _ in range(reps):
+                tdist.barrier()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                call()
+                torch.cuda.synchronize(dev)
+                walls.append(time.perf_counter() - t0)
+            # The split forced on: each rank's interior on a side stream
+            # before the exchange (the default above is serial when the
+            # ranks share a card).
+            other, other_counts = counted(lambda: call(not sched.overlap))
+            res[f"{dname} {mname}"] = {
+                "other_overlap": [not sched.overlap, torch.equal(other, solo),
+                                  other_counts],
+                "equal_solo": torch.equal(out, solo), "equal_inproc": inproc,
+                "max_err": float((out.float() - solo.float()).abs().max()),
+                "counts": counts, "k1": k1,
+                "walls": walls, "overlap": sched.overlap,
+                "devices": [str(d) for d in mesh.devices],
+                "rounds": sched.exchanges}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def check_ranks(label: str, backend: str, world: int, smi: str,
+                reps: int = 3) -> dict:
+    """Spawn ``world`` ranks over ``backend`` running :func:`rank_dist`,
+    check what each saved and print it; return the per-cell rows."""
+    import tempfile
+    from repro_torch.dist import process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        process.spawn(rank_dist, world, tmp, reps, backend=backend,
+                      timeout_s=300)
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{k}.json").read_text())
+                 for k in range(world)]
+    spawn_s = time.perf_counter() - t0
+    rows = {}
+    for cell in ranks[0]:
+        per = [r[cell] for r in ranks]
+        mult = 5 if per[0]["overlap"] else 1
+        want = {"shifted": 0, "dbuf": 0, "temporal": 125 * mult,
+                "rowchunk": 3 * mult}
+        for k, r in enumerate(per):
+            check(r["equal_solo"] and r["counts"] == want
+                  and r["k1"]["jacobi5"] == want["temporal"],
+                  f"{label} {cell} rank {k}: == single device "
+                  f"{r['equal_solo']} (max |err| {r['max_err']}), launches "
+                  f"{r['counts']} != {want}, K1 variants {r['k1']}")
+            ov, same, counts = r["other_overlap"]
+            m = 5 if ov else 1
+            check(same and counts == {"shifted": 0, "dbuf": 0,
+                                      "temporal": 125 * m,
+                                      "rowchunk": 3 * m},
+                  f"{label} {cell} rank {k} overlap={ov}: == single device "
+                  f"{same}, launches {counts}")
+        check(per[0]["equal_inproc"],
+              f"{label} {cell}: rank 0's grid != the in-process mesh")
+        k1 = sum(r["counts"]["temporal"] for r in per)
+        k2 = sum(r["counts"]["rowchunk"] for r in per)
+        walls = sorted(max(r["walls"][i] for r in per) for i in range(reps))
+        wall = walls[reps // 2]
+        rows[cell] = {"wall_s": wall, "wall_range_s": (walls[0], walls[-1]),
+                      "host_us_a_round": wall / per[0]["rounds"] * 1e6,
+                      "gpts": NY * NX * ITERS / wall / 1e9, "k1": k1,
+                      "k2": k2, "overlap": per[0]["overlap"],
+                      "devices": per[0]["devices"]}
+        print(f"[{label}] {cell}: {world} ranks over {backend} on "
+              f"{per[0]['devices']}: every rank == its single-device "
+              f"engine.run bit for bit, rank 0 == the in-process mesh; "
+              f"launches K1 {k1} K2 {k2} in all ({per[0]['counts']} a "
+              f"rank); wall={wall:.6f}s (median of {reps} of the slowest "
+              f"rank, {walls[0]:.6f}-{walls[-1]:.6f}), "
+              f"{rows[cell]['host_us_a_round']:.1f} us a round over "
+              f"{per[0]['rounds']} rounds, GPt/s={rows[cell]['gpts']:.3f}; "
+              f"overlap={per[0]['other_overlap'][0]} also bit for bit "
+              f"({per[0]['other_overlap'][2]['temporal']} K1 a rank); "
+              f"on {smi}")
+    print(f"[{label}] spawn and all cells: {spawn_s:.1f}s")
+    return rows
+
+
+def torchrun_cli(world: int, backend: str, smi: str) -> None:
+    """``launch.solve --devices N`` one shard a rank under
+    ``torch.distributed.run`` (a local rendezvous), bf16, ``--check``."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={world}", "-m", "repro_torch.launch.solve",
+           "--ny", str(NY), "--nx", str(NX), "--iters", str(ITERS),
+           "--depth", str(T), "--devices", str(world), "--dtype",
+           "bfloat16", "--dist-backend", backend, "--check"]
+    t0 = time.perf_counter()
+    got = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    out = got.stdout
+    check(got.returncode == 0 and "CHECK OK" in out and "bit for bit" in out
+          and f"{world} ranks over {backend}" in out,
+          f"torch.distributed.run launch.solve ({backend}) exit "
+          f"{got.returncode}:\n{out[-3000:]}\n{got.stderr[-3000:]}")
+    print(f"torch.distributed.run --nproc-per-node={world} -m "
+          f"repro_torch.launch.solve --devices {world} --dist-backend "
+          f"{backend} --check ({time.perf_counter() - t0:.1f}s, rank 0's "
+          f"lines):")
+    for line in out.splitlines():
+        if line.startswith(("schedule:", "kernel=", "wall=", "distributed",
+                            "CHECK")):
+            print(f"  {line}")
+    print(f"  on {smi}")
+
+
+def phase_dist_cards(smi: str, stats) -> None:
+    """Phase 13b and 13c: one process a shard, and the cards present."""
+    print(f"== phase 13b: run_distributed(policy='auto', iters={ITERS}, "
+          f"t={T}) at {NY}x{NX}, four ranks sharing the card over gloo ==")
+    rows = check_ranks("13b gloo", "gloo", 4, smi)
+    torchrun_cli(4, "gloo", smi)
+    for policy in ("temporal", "rowchunk"):
+        stats[policy]["paths"]["run_distributed(auto, iters=1003, t=8, "
+                               "ProcessMesh((4,)), 4 gloo ranks)"] = \
+            rows["bfloat16 (4,)"]["k1" if policy == "temporal" else "k2"]
+    stats["temporal"]["run_distributed_ranks"] = {
+        f"gloo {cell}": row for cell, row in rows.items()}
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"== phase 13c: needs 2 cards or more (the in-process mesh "
+              f"over distinct cards, NCCL ranks one a card); {cards} "
+              f"present: not run ==")
+        return
+    print(f"== phase 13c: {cards} cards: the in-process mesh over them, "
+          f"then NCCL ranks one a card ==")
+    from repro_torch.dist import ShardMesh
+    spec = jacobi_2d_5pt()
+    for dname, dtype in DTYPES.items():
+        u0 = make_laplace_problem(NY, NX, dtype=dtype)
+        solo = engine.run(u0, spec, policy="temporal", iters=ITERS, t=T)
+        for mname, (shape, axes) in DIST_MESHES.items():
+            mesh = ShardMesh(shape, axes)
+            check(len(set(mesh.devices)) == min(cards, 4),
+                  f"default mesh {mname} on {mesh.devices}")
+            for overlap in (False, True, None):
+                sched, _, _ = engine.plan_distributed(
+                    u0.shape, dtype, spec, mesh=mesh, policy="auto",
+                    iters=ITERS, t=T, overlap=overlap)
+                mult = 5 if sched.overlap else 1
+                want = {"shifted": 0, "dbuf": 0, "temporal": 500 * mult,
+                        "rowchunk": 12 * mult}
+                out, wall, spread, counts, _, _ = timed_wall(
+                    lambda: engine.run_distributed(
+                        u0, spec, mesh=mesh, policy="auto", iters=ITERS,
+                        t=T, overlap=overlap), reps=3)
+                check(counts == want and torch.equal(out, solo),
+                      f"13c {dname} {mname} overlap={overlap}: launches "
+                      f"{counts} != {want} or != single device")
+                print(f"[13c {dname}] in-process mesh {mname} on "
+                      f"{[str(d) for d in mesh.devices]} overlap={overlap} "
+                      f"(resolved {sched.overlap}): == single device bit for "
+                      f"bit; launches K1 {counts['temporal']} K2 "
+                      f"{counts['rowchunk']}; wall={wall:.6f}s (median of 3,"
+                      f" {spread[0]:.6f}-{spread[1]:.6f}); on {smi}")
+    world = 4 if cards >= 4 else 2
+    rows = check_ranks("13c nccl", "nccl", world, smi)
+    stats["temporal"]["run_distributed_ranks"].update(
+        {f"nccl {cell}": row for cell, row in rows.items()})
+    torchrun_cli(world, "nccl", smi)
+
+
 # version -> (its policy, its deprecated wrapper in kernels/jacobi.py)
 JACOBI_VERSIONS = {"v0": ("shifted", "jacobi_v0_shifted"),
                    "v1": ("rowchunk", "jacobi_v1_rowchunk"),
@@ -3608,6 +3838,7 @@ def phases(smi: str, peaks, dry) -> None:
     run("phase 11 zamba2 serving", phase_hybrid, smi, stats, free=True)
     run("phase 12 solve serving", phase_solve_serve, smi, stats)
     run("phase 13 distributed", phase_dist, smi, stats)
+    run("phase 13b-c ranks and cards", phase_dist_cards, smi, stats)
     run("phase 14 grayskull", phase_grayskull, smi, stats)
     run("phase 15 jacobi", phase_jacobi, smi, stats)
     run("phase 16 decoders", phase_decoders, smi, stats, free=True)
@@ -3631,7 +3862,8 @@ def phases(smi: str, peaks, dry) -> None:
             "dtype": "bfloat16", **s["bfloat16"],
             "float32": s["float32"],
             **{k: s[k] for k in ("cases", "solve_serve", "run_distributed",
-                                 "grayskull_sim") if k in s}})
+                                 "run_distributed_ranks", "grayskull_sim")
+               if k in s}})
     kid, replaces = FLASH
     s = stats["flash"]
     for dname, kernel in (("bfloat16", "wgmma (tensor cores)"),

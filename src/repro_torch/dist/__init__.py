@@ -3,7 +3,11 @@ the pipeline schedule and the mesh-aware stencil decomposition.
 
 * :mod:`repro_torch.dist.mesh` — :class:`ShardMesh`, the port's
   counterpart of ``jax.sharding.Mesh``: one process, every shard on a
-  torch device from a list.
+  torch device from a list (by default the cards present, in turn).
+* :mod:`repro_torch.dist.process` — :class:`ProcessMesh`: one process a
+  shard over a ``torch.distributed`` group (NCCL between cards, gloo on
+  the CPU or on a shared card), the stencil's halos as point-to-point
+  messages.
 * :mod:`repro_torch.dist.sharding` — logical-axis -> mesh-axis rule
   tables, the tree/state/batch spec builders the launchers use, and the
   in-process layouts (``lay_out``, ``shard_call``).
@@ -19,6 +23,7 @@ The reference's ``repro.dist._compat`` has no counterpart: it only moves
 """
 from repro_torch.dist import pipeline, sharding  # noqa: F401
 from repro_torch.dist.mesh import ShardMesh  # noqa: F401
+from repro_torch.dist.process import ProcessMesh  # noqa: F401
 from repro_torch.dist.sharding import (  # noqa: F401
     ACT_RULES,
     DEFAULT_RULES,

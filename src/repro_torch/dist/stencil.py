@@ -5,8 +5,12 @@ The port's copy of ``repro.dist.stencil``. The reference runs a per-shard
 body under ``shard_map`` and moves halos with ``ppermute``; here one
 process holds every shard of a :class:`~repro_torch.dist.mesh.ShardMesh`
 and loops the same body over the shards, moving halos between shard
-tensors with ``copy_``. The local computation is a *block callable*
-``block(ext, fixed, t, out=None)`` on an extended (haloed) shard:
+tensors with ``copy_`` — or, over a
+:class:`~repro_torch.dist.process.ProcessMesh`, each rank holds one shard
+and the same strips (:func:`_halo_strips`) move as point-to-point
+messages (:mod:`repro_torch.dist.process`). The local computation is a
+*block callable* ``block(ext, fixed, t, out=None)`` on an extended
+(haloed) shard:
 :func:`masked_block` around any single-sweep callable obeying the engine's
 ringed contract, or a fused kernel that takes the pin mask itself
 (``engine.stencil_temporal`` with ``mask=``: all ``t`` sweeps in one
@@ -53,12 +57,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Dict
 
 import torch
 
 from repro_torch.core.decomp import check_divisible, split_ringed_bands
-from repro_torch.core.halo import exchange_rows
 from repro_torch.core.stencil import StencilSpec
 from repro_torch.engine.schedule import overlap_feasible
 from repro_torch.obs.trace import get_tracer
@@ -143,106 +147,141 @@ class _Layout:
             out[rs, cs] = shards[k]
         return out
 
+    @property
+    def positions(self) -> list:
+        """The ``(ix, iy)`` of the shards this process holds: all."""
+        return _grid_positions(self.px, self.py)
 
-def _assemble_ext(shards, top, bottom, left, right, tl, tr, bl, br, *,
-                  px: int, py: int, r: int, d: int) -> list:
-    """Build every shard's depth-``d`` extended block, once per depth.
+    def exchanger(self, d: int) -> Callable:
+        return _pair_exchanger(self.px, self.py, d)
 
-    ``shards`` are the ``(hl, wl)`` shards in shard order, each on its
-    device; ``top``/``bottom`` (``(r, Wi)``), ``left``/``right``
-    (``(Hi, r)``) the global Dirichlet bands and ``tl``..``br`` the
-    ``r x r`` ring corners. Each block gets its shard at the centre, the
-    bands padded outward on physical domain edges — the left/right bands
-    span the halo rows too, and those rows come from the row neighbours'
-    slices of the band (``exchange_rows`` of the bands: the reference's
-    packed ``[left | grid | right]`` row exchange, less the grid, which
-    :func:`_exchange` moves every round) — and the physical ring corners
-    on the corner shards. Cells that neighbours' halos fill are zero
-    until :func:`_exchange` runs.
+
+def _assemble_one(u, top, bottom, left, right, tl, tr, bl, br, *, ix: int,
+                  iy: int, px: int, py: int, r: int, d: int) -> torch.Tensor:
+    """The depth-``d`` extended block of the ``(hl, wl)`` shard ``u`` at
+    position ``(ix, iy)`` of a ``px x py`` grid, on ``u``'s device.
+
+    ``top``/``bottom`` (``(r, Wi)``), ``left``/``right`` (``(Hi, r)``)
+    are the global Dirichlet bands and ``tl``..``br`` the ``r x r`` ring
+    corners. The block gets the shard at the centre, the bands padded
+    outward on physical domain edges — the left/right bands span the halo
+    rows too, and those rows are the row neighbours' slices of the band
+    (zeros past the domain: the reference's packed ``[left | grid |
+    right]`` row exchange, less the grid, which the exchange moves every
+    round) — and the physical ring corners on the corner shards. Cells
+    that neighbours' halos fill are zero until the first exchange.
     """
-    hl, wl = shards[0].shape
+    hl, wl = u.shape
     if d > min(hl, wl):
         raise ValueError(
             f"halo depth {d} (t={d // r} sweeps x radius {r}) exceeds local "
             f"block {(hl, wl)}; lower t or use more rows/cols per shard")
-    dtype = shards[0].dtype
 
-    def band_col(band):  # the row neighbours' halos of each shard row
-        rows = [band[ix * hl:(ix + 1) * hl] for ix in range(px)]
-        return rows, exchange_rows(rows, d)
-    lrows, lhalo = band_col(left)
-    rrows, rhalo = band_col(right)
-    exts = []
-    for ix in range(px):
-        for iy in range(py):
-            u = shards[ix * py + iy]
+    def here(x):
+        return x.to(device=u.device, dtype=u.dtype)
 
-            def here(x):
-                return x.to(device=u.device, dtype=dtype)
-            ext = u.new_zeros((hl + 2 * d, wl + 2 * d))
-            ext[d:d + hl, d:d + wl] = u
-            cols = slice(iy * wl, (iy + 1) * wl)
-            if ix == 0:
-                ext[:d, d:d + wl] = _pad_outward(here(top[:, cols]), d, 0,
-                                                 leading=True)
-            if ix == px - 1:
-                ext[hl + d:, d:d + wl] = _pad_outward(
-                    here(bottom[:, cols]), d, 0, leading=False)
-            if iy == 0:
-                up, down = lhalo[ix]
-                ext[:, :d] = _pad_outward(
-                    here(torch.cat([up, lrows[ix], down])), d, 1,
-                    leading=True)
-            if iy == py - 1:
-                up, down = rhalo[ix]
-                ext[:, wl + d:] = _pad_outward(
-                    here(torch.cat([up, rrows[ix], down])), d, 1,
-                    leading=False)
-            # Physical ring corners (read by diagonal taps; the bands drop
-            # them): the true r x r corner blocks on the four corner shards.
-            rows_top, rows_bot = slice(d - r, d), slice(hl + d, hl + d + r)
-            cols_lef, cols_rig = slice(d - r, d), slice(wl + d, wl + d + r)
-            for cond, corner, rs, cs in (
-                (ix == 0 and iy == 0, tl, rows_top, cols_lef),
-                (ix == 0 and iy == py - 1, tr, rows_top, cols_rig),
-                (ix == px - 1 and iy == 0, bl, rows_bot, cols_lef),
-                (ix == px - 1 and iy == py - 1, br, rows_bot, cols_rig),
-            ):
-                if cond:
-                    ext[rs, cs] = here(corner)
-            exts.append(ext)
-    return exts
+    def band_col(band):  # the shard's rows of a column band, with halos
+        up = band[ix * hl - d:ix * hl] if ix > 0 else band.new_zeros((d, r))
+        down = (band[(ix + 1) * hl:(ix + 1) * hl + d] if ix < px - 1
+                else band.new_zeros((d, r)))
+        return here(torch.cat([up, band[ix * hl:(ix + 1) * hl], down]))
+    ext = u.new_zeros((hl + 2 * d, wl + 2 * d))
+    ext[d:d + hl, d:d + wl] = u
+    cols = slice(iy * wl, (iy + 1) * wl)
+    if ix == 0:
+        ext[:d, d:d + wl] = _pad_outward(here(top[:, cols]), d, 0,
+                                         leading=True)
+    if ix == px - 1:
+        ext[hl + d:, d:d + wl] = _pad_outward(here(bottom[:, cols]), d, 0,
+                                              leading=False)
+    if iy == 0:
+        ext[:, :d] = _pad_outward(band_col(left), d, 1, leading=True)
+    if iy == py - 1:
+        ext[:, wl + d:] = _pad_outward(band_col(right), d, 1, leading=False)
+    # Physical ring corners (read by diagonal taps; the bands drop them):
+    # the true r x r corner blocks on the four corner shards.
+    rows_top, rows_bot = slice(d - r, d), slice(hl + d, hl + d + r)
+    cols_lef, cols_rig = slice(d - r, d), slice(wl + d, wl + d + r)
+    for cond, corner, rs, cs in (
+        (ix == 0 and iy == 0, tl, rows_top, cols_lef),
+        (ix == 0 and iy == py - 1, tr, rows_top, cols_rig),
+        (ix == px - 1 and iy == 0, bl, rows_bot, cols_lef),
+        (ix == px - 1 and iy == py - 1, br, rows_bot, cols_rig),
+    ):
+        if cond:
+            ext[rs, cs] = here(corner)
+    return ext
+
+
+def _grid_positions(px: int, py: int) -> list:
+    """Every ``(ix, iy)`` of a ``px x py`` grid, in shard order."""
+    return [(ix, iy) for ix in range(px) for iy in range(py)]
+
+
+def _assemble_ext(shards, *bands, px: int, py: int, r: int, d: int,
+                  positions=None) -> list:
+    """Build the extended block of each shard in ``shards`` (at
+    ``positions``, default: every shard of the grid in shard order), once
+    per depth (:func:`_assemble_one`; ``bands`` are its ``top`` ..
+    ``br``)."""
+    positions = positions or _grid_positions(px, py)
+    return [_assemble_one(u, *bands, ix=ix, iy=iy, px=px, py=py, r=r, d=d)
+            for u, (ix, iy) in zip(shards, positions)]
+
+
+def _halo_strips(ix: int, iy: int, *, px: int, py: int, hl: int, wl: int,
+                 d: int) -> tuple[list, list]:
+    """One extended block's halos, by phase: ``(rows, columns)``.
+
+    Each strip is ``(peer, recv, send)``: the neighbour ``(ix, iy)``,
+    the slices of this block its halo fills, and the slices of this block
+    that fill the neighbour's halo facing this one. Phase 1, rows: the
+    top/bottom halo rows over the shard's columns. Phase 2, columns of the
+    row-extended block: the left/right halo columns, all rows of them, so
+    the diagonal shard corners ride along. Physical edges have no strip:
+    they keep the bands :func:`_assemble_one` put there.
+    """
+    inner = slice(d, d + wl)
+    rows, cols = [], []
+    if ix > 0:
+        rows.append(((ix - 1, iy), (slice(0, d), inner),
+                     (slice(d, 2 * d), inner)))
+    if ix < px - 1:
+        rows.append(((ix + 1, iy), (slice(hl + d, hl + 2 * d), inner),
+                     (slice(hl, hl + d), inner)))
+    every = slice(None)
+    if iy > 0:
+        cols.append(((ix, iy - 1), (every, slice(0, d)),
+                     (every, slice(d, 2 * d))))
+    if iy < py - 1:
+        cols.append(((ix, iy + 1), (every, slice(wl + d, wl + 2 * d)),
+                     (every, slice(wl, wl + d))))
+    return rows, cols
 
 
 def _halo_pairs(exts, *, px: int, py: int, d: int) -> list:
-    """The exchange phase as ``(destination, source)`` view pairs over the
-    extended blocks, in the order they must be copied.
-
-    Phase 1, rows: each block's top/bottom halo rows over the shard's
-    columns are the row neighbours' edge rows. Phase 2, columns of the
-    row-extended blocks: each block's left/right halo columns, all rows
-    of them, are the column neighbours' edge columns including their row
-    halos, so the diagonal shard corners ride along. Physical edges keep
-    the bands :func:`_assemble_ext` put there. The views are made once a
-    depth; a round only copies (:func:`_exchange`).
-    """
+    """The exchange over every shard's extended block as ``(destination,
+    source)`` view pairs, in the order they must be copied: every row
+    strip of :func:`_halo_strips`, then every column strip. The views are
+    made once a depth; a round only copies (:func:`_exchange`)."""
     hl, wl = exts[0].shape[0] - 2 * d, exts[0].shape[1] - 2 * d
-    rows, cols = [], []
-    for ix in range(px):
-        for iy in range(py):
-            e = exts[ix * py + iy]
-            if ix > 0:
-                rows.append((e[:d, d:d + wl],
-                             exts[(ix - 1) * py + iy][hl:hl + d, d:d + wl]))
-            if ix < px - 1:
-                rows.append((e[hl + d:, d:d + wl],
-                             exts[(ix + 1) * py + iy][d:2 * d, d:d + wl]))
-            if iy > 0:
-                cols.append((e[:, :d], exts[ix * py + iy - 1][:, wl:wl + d]))
-            if iy < py - 1:
-                cols.append((e[:, wl + d:],
-                             exts[ix * py + iy + 1][:, d:2 * d]))
-    return rows + cols
+    strips = [_halo_strips(ix, iy, px=px, py=py, hl=hl, wl=wl, d=d)
+              for ix, iy in _grid_positions(px, py)]
+    pairs = ([], [])
+    for k, e in enumerate(exts):
+        for phase, own in zip(pairs, strips[k]):
+            for (pix, piy), recv, _ in own:
+                peer = pix * py + piy
+                phase.append((e[recv], exts[peer][_facing(
+                    strips[peer], (k // py, k % py))]))
+    return pairs[0] + pairs[1]
+
+
+def _facing(strips, pos) -> tuple:
+    """The ``send`` slices of the strip in ``strips`` whose peer is
+    ``pos``."""
+    return next(send for phase in strips for peer, _, send in phase
+                if peer == pos)
 
 
 def _exchange(pairs) -> None:
@@ -315,17 +354,27 @@ def _rind_stitch(ext, fixed_strips, inner_keep, *, block: Callable, t: int,
 class _Shards:
     """One depth's extended blocks and their spare buffers (the blocks a
     round writes into; the two swap every round), each set with its
-    exchange's view pairs."""
+    exchange: ``exchanger(exts)`` returns the call that moves the halos
+    into ``exts``."""
 
-    def __init__(self, exts: list, *, px: int, py: int, d: int):
+    def __init__(self, exts: list, exchanger: Callable):
         self.exts = exts
         self.spares = [e.clone() for e in exts]
-        self.halos = _halo_pairs(exts, px=px, py=py, d=d)
-        self.spare_halos = _halo_pairs(self.spares, px=px, py=py, d=d)
+        self.halos = exchanger(exts)
+        self.spare_halos = exchanger(self.spares)
 
     def swap(self) -> None:
         self.exts, self.spares = self.spares, self.exts
         self.halos, self.spare_halos = self.spare_halos, self.halos
+
+
+def _pair_exchanger(px: int, py: int, d: int) -> Callable:
+    """The in-process exchange: ``exts`` (every shard's block, in shard
+    order) -> the call that copies their :func:`_halo_pairs`."""
+    def make(exts):
+        return functools.partial(_exchange, _halo_pairs(exts, px=px, py=py,
+                                                        d=d))
+    return make
 
 
 class _Phases:
@@ -336,10 +385,17 @@ class _Phases:
     masks, their rind strips and the interior's all-zero mask depend only
     on a shard's position and ``d``: they are built once, as contiguous
     ``uint8`` tensors on each shard's device, at the first :meth:`start`.
+    ``positions`` are the ``(ix, iy)`` of the shards this process holds
+    (default: all of them, in shard order) and ``exchanger`` makes their
+    exchange (default: :func:`_pair_exchanger`; one process a shard passes
+    :mod:`repro_torch.dist.process`'s).
     """
 
-    def __init__(self, block: Callable, *, px: int, py: int, r: int, t: int):
+    def __init__(self, block: Callable, *, px: int, py: int, r: int, t: int,
+                 positions=None, exchanger: Callable | None = None):
         self.block, self.px, self.py, self.t, self.d = block, px, py, t, t * r
+        self.positions = positions or _grid_positions(px, py)
+        self.exchanger = exchanger or _pair_exchanger(px, py, self.d)
         self._masks = None
 
     def start(self, exts: list) -> _Shards:
@@ -347,15 +403,15 @@ class _Phases:
         hl, wl = exts[0].shape[0] - 2 * d, exts[0].shape[1] - 2 * d
         key = (hl, wl, tuple(e.device for e in exts))
         if self._masks is None or self._masks[0] != key:
-            fixed = [_pin_mask(hl, wl, d, k // self.py, k % self.py, self.px,
-                               self.py, e.device) for k, e in enumerate(exts)]
+            fixed = [_pin_mask(hl, wl, d, ix, iy, self.px, self.py, e.device)
+                     for (ix, iy), e in zip(self.positions, exts)]
             strips = [tuple(f[rs, cs].contiguous()
                             for rs, cs in _rind_strips(hl, wl, d))
                       for f in fixed]
             zeros = [torch.zeros((hl, wl), dtype=torch.uint8, device=e.device)
                      for e in exts]
             self._masks = (key, fixed, strips, zeros)
-        return _Shards(exts, px=self.px, py=self.py, d=d)
+        return _Shards(exts, self.exchanger)
 
     def shard_shape(self, s: _Shards) -> tuple[int, int]:
         return (s.exts[0].shape[0] - 2 * self.d,
@@ -366,7 +422,7 @@ class _Phases:
         return [e[d:-d, d:-d] for e in s.exts]
 
     def exchange(self, s: _Shards) -> None:
-        _exchange(s.halos)
+        s.halos()
 
     def compute(self, s: _Shards) -> None:
         fixed = self._masks[1]
@@ -536,6 +592,15 @@ def make_sharded_step(mesh, spec: StencilSpec, block: Callable, *,
     return step
 
 
+def _layout_of(mesh, row_axis, col_axis, interior_shape):
+    """The shard layout of ``mesh``: every shard in this process
+    (:class:`_Layout`), or this rank's one shard of a
+    :class:`~repro_torch.dist.process.ProcessMesh`."""
+    from repro_torch.dist.process import ProcessMesh, RankLayout
+    kind = RankLayout if isinstance(mesh, ProcessMesh) else _Layout
+    return kind.of(mesh, row_axis, col_axis, interior_shape)
+
+
 def _execute_rounds(u, spec: StencilSpec, mesh, block: Callable, *,
                     schedule, row_axis, col_axis, remainder_block,
                     bill=None, remainder_bill=None, traced: bool = False,
@@ -547,7 +612,7 @@ def _execute_rounds(u, spec: StencilSpec, mesh, block: Callable, *,
     interior, bc = split_ringed_bands(u, r)
     bands = (bc["top"], bc["bottom"], bc["left"], bc["right"], u[:r, :r],
              u[:r, -r:], u[-r:, :r], u[-r:, -r:])
-    layout = _Layout.of(mesh, row_axis, col_axis, interior.shape)
+    layout = _layout_of(mesh, row_axis, col_axis, interior.shape)
     shards = layout.split(interior)
     side: dict = {}
     idx = 0
@@ -558,9 +623,12 @@ def _execute_rounds(u, spec: StencilSpec, mesh, block: Callable, *,
              remainder_bill)):
         if not reps:
             continue
-        ph = _Phases(blk, px=layout.px, py=layout.py, r=r, t=t)
+        ph = _Phases(blk, px=layout.px, py=layout.py, r=r, t=t,
+                     positions=layout.positions,
+                     exchanger=layout.exchanger(t * r))
         s = ph.start(_assemble_ext(shards, *bands, px=layout.px,
-                                   py=layout.py, r=r, d=t * r))
+                                   py=layout.py, r=r, d=t * r,
+                                   positions=layout.positions))
         for _ in range(reps):
             if traced:
                 _traced_round(s, ph, overlap=schedule.overlap, idx=idx,

@@ -3,9 +3,12 @@
 The port's copy of ``repro.engine.distributed``. ``run_distributed`` is
 the multi-device twin of ``engine.run``: it advances a ringed grid by
 ``iters`` sweeps of any 2-D :class:`StencilSpec`, decomposed over a
-:class:`~repro_torch.dist.mesh.ShardMesh` with depth-``t`` halo exchange
-(:mod:`repro_torch.dist.stencil`), and runs the *local* computation
-through the same policy registry ``engine.run`` uses.
+:class:`~repro_torch.dist.mesh.ShardMesh` (every shard in this process)
+or a :class:`~repro_torch.dist.process.ProcessMesh` (one shard a rank of
+a ``torch.distributed`` group, every rank making the same call) with
+depth-``t`` halo exchange (:mod:`repro_torch.dist.stencil`), and runs the
+*local* computation through the same policy registry ``engine.run``
+uses.
 
 Scheduling is shared with ``engine.run``: both executors run a
 :class:`~repro_torch.engine.schedule.SweepSchedule` (``t`` sweeps per
@@ -176,7 +179,9 @@ def run_distributed(u: torch.Tensor, spec: StencilSpec | None = None, *,
     is bit-identical either way). ``donate=True``
     writes the result into ``u`` itself.
 
-    The rounds are a Python loop of launches. With an obs tracer
+    Over a ``ProcessMesh`` every rank passes the same ``u``, runs its own
+    shard's rounds and returns the whole grid (all-gathered), on ``u``'s
+    device. The rounds are a Python loop of launches. With an obs tracer
     installed, rounds run through the span-per-phase traced executor,
     each phase span carrying its round's modeled
     :class:`~repro_torch.engine.schedule.ExchangeBill`.

@@ -200,13 +200,16 @@ def _checked(name: str, err: int, variant: str | None = None) -> None:
         _VARIANTS[name][variant] += 1
 
 
-def _stream(u: torch.Tensor) -> int:
-    return torch.cuda.current_stream(u.device).cuda_stream
-
-
 def _lib():
     from repro_torch.kernels.build import load
     return load("stencil")
+
+
+def _on_card(*operands):
+    """``kernels.build.on_card``: the operands' card current around a
+    launch; yields its stream handle."""
+    from repro_torch.kernels.build import on_card
+    return on_card(*operands)
 
 
 def _sm_count(dev: torch.device) -> int:
@@ -233,8 +236,8 @@ def launch_shifted_views(plan: ExecutionPlan, views: list[torch.Tensor],
     write their weighted sum into ``out``'s interior; return ``out``."""
     spec, r = plan.spec, plan.radius
     hi, wi = plan.interior_shape
-    if out.device.type != "cuda" or not out.is_contiguous():
-        raise ValueError("out must be a contiguous CUDA grid")
+    if not out.is_contiguous():  # the card: on_card refuses any other
+        raise ValueError("out must be a contiguous grid")
     if (tuple(out.shape[-2:]) != plan.shape
             or out.dtype != getattr(torch, plan.dtype)):
         raise ValueError(f"plan is for {plan.shape} {plan.dtype}; out is "
@@ -249,10 +252,12 @@ def launch_shifted_views(plan: ExecutionPlan, views: list[torch.Tensor],
     b, _, w = _batch_hw(out)
     n, _, _, wts = _tap_args(spec)
     ptrs = (ctypes.c_void_p * n)(*(v.data_ptr() for v in views))
-    blocks = min(-(-hi * wi // 256), 8 * _sm_count(out.device))
-    _checked("shifted", _lib().repro_shifted(
-        ptrs, out.data_ptr(), _DTYPE_CODE[out.dtype], b, hi, wi, w, r,
-        blocks, n, wts, _stream(out)))
+    with _on_card(out, *views) as stream:
+        blocks = min(-(-hi * wi // 256), 8 * _sm_count(out.device))
+        err = _lib().repro_shifted(
+            ptrs, out.data_ptr(), _DTYPE_CODE[out.dtype], b, hi, wi, w, r,
+            blocks, n, wts, stream)
+    _checked("shifted", err)
     return out
 
 
@@ -272,10 +277,12 @@ def _launch_rowchunk(plan: ExecutionPlan, u, out, mask) -> None:
     b, h, w = _batch_hw(u)
     n, dy, dx, wts = _tap_args(plan.spec)
     variant, geometry, pitch = _sweep_args(plan)
-    _checked("rowchunk", _lib().repro_rowchunk(
-        u.data_ptr(), out.data_ptr(), geometry, _DTYPE_CODE[u.dtype], b, h,
-        w, plan.radius, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles,
-        pitch, n, dy, dx, wts, plan.vmem_bytes, _stream(u)), variant)
+    with _on_card(u, out) as stream:
+        err = _lib().repro_rowchunk(
+            u.data_ptr(), out.data_ptr(), geometry, _DTYPE_CODE[u.dtype], b,
+            h, w, plan.radius, plan.bm, plan.bn, plan.row_tiles,
+            plan.col_tiles, pitch, n, dy, dx, wts, plan.vmem_bytes, stream)
+    _checked("rowchunk", err, variant)
 
 
 def _launch_dbuf(plan: ExecutionPlan, u, out, mask) -> None:
@@ -284,10 +291,13 @@ def _launch_dbuf(plan: ExecutionPlan, u, out, mask) -> None:
     variant, geometry, pitch = _sweep_args(plan)
     # Tiles a block walks: 0 lets the launcher fill the card's resident
     # blocks (it knows the kernel's occupancy).
-    _checked("dbuf", _lib().repro_dbuf(
-        u.data_ptr(), out.data_ptr(), geometry, _DTYPE_CODE[u.dtype], b, h,
-        w, plan.radius, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles, 0,
-        pitch, n, dy, dx, wts, plan.vmem_bytes, _stream(u)), variant)
+    with _on_card(u, out) as stream:
+        err = _lib().repro_dbuf(
+            u.data_ptr(), out.data_ptr(), geometry, _DTYPE_CODE[u.dtype], b,
+            h, w, plan.radius, plan.bm, plan.bn, plan.row_tiles,
+            plan.col_tiles, 0, pitch, n, dy, dx, wts, plan.vmem_bytes,
+            stream)
+    _checked("dbuf", err, variant)
 
 
 def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
@@ -295,25 +305,30 @@ def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
     mask_ptr = None
     if mask is not None:
         # The kernel reads one byte a cell (nonzero = pinned) over the
-        # whole grid; a mask already in that form is passed as it is.
+        # whole grid; a mask already in that form is passed as it is. A
+        # mask on the CPU is moved to the grid's card; one on another card
+        # is refused below.
+        if mask.device.type == "cpu":
+            mask = mask.to(u.device)
         if not (mask.dtype == torch.uint8 and mask.shape == u.shape
-                and mask.device == u.device and mask.is_contiguous()):
-            mask = (mask.to(u.device) != 0).to(torch.uint8).expand(u.shape)
-            mask = mask.contiguous()
+                and mask.is_contiguous()):
+            mask = (mask != 0).to(torch.uint8).expand(u.shape).contiguous()
         mask_ptr = mask.data_ptr()
     n, dy, dx, wts = _tap_args(plan.spec)
     variant = temporal_variant(plan.spec)
-    if variant == "general":
-        err = _lib().repro_temporal(
-            u.data_ptr(), mask_ptr, out.data_ptr(), _DTYPE_CODE[u.dtype], b,
-            h, w, plan.radius, plan.t, plan.bm, plan.bn, plan.row_tiles,
-            plan.col_tiles, n, dy, dx, wts, plan.vmem_bytes, _stream(u))
-    else:
-        err = _lib().repro_temporal_geo(
-            u.data_ptr(), mask_ptr, out.data_ptr(), _GEOMETRY_CODE[variant],
-            _DTYPE_CODE[u.dtype], b, h, w, plan.radius, plan.t, plan.bm,
-            plan.bn, plan.row_tiles, plan.col_tiles, n, wts,
-            plan.vmem_bytes, _stream(u))
+    with _on_card(u, out, mask) as stream:
+        if variant == "general":
+            err = _lib().repro_temporal(
+                u.data_ptr(), mask_ptr, out.data_ptr(), _DTYPE_CODE[u.dtype],
+                b, h, w, plan.radius, plan.t, plan.bm, plan.bn,
+                plan.row_tiles, plan.col_tiles, n, dy, dx, wts,
+                plan.vmem_bytes, stream)
+        else:
+            err = _lib().repro_temporal_geo(
+                u.data_ptr(), mask_ptr, out.data_ptr(),
+                _GEOMETRY_CODE[variant], _DTYPE_CODE[u.dtype], b, h, w,
+                plan.radius, plan.t, plan.bm, plan.bn, plan.row_tiles,
+                plan.col_tiles, n, wts, plan.vmem_bytes, stream)
     _checked("temporal", err, variant)
 
 

@@ -17,15 +17,24 @@ moves it. Nothing here runs at import: the CPU tests import every module
 of the port, and a machine without ``nvcc`` only fails when a kernel is
 actually launched. :func:`build_all` starts one ``nvcc`` per source, all
 at once.
+
+Every launch runs inside :func:`on_card`: a ``<<<...>>>`` launch, the
+``cudaFuncSetAttribute`` a launcher sets before it and the SM count a
+launcher reads all act on the CUDA runtime's *current* device, so the
+operands' card is made current around the call, whichever card the
+caller had current.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import pathlib
 import shutil
 import subprocess
+
+import torch
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("stencil", "flash_attention", "flash_attention_sm90", "conv1d",
@@ -52,6 +61,28 @@ def observer():
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused a source."""
+
+
+def launch_device(*operands) -> torch.device:
+    """The one device a launch's ``operands`` (tensors, or None for an
+    operand left out) sit on; operands on two devices raise."""
+    devs = {t.device for t in operands if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"a kernel's operands must sit on one card; got "
+                         f"{sorted(map(str, devs))}")
+    return devs.pop()
+
+
+@contextlib.contextmanager
+def on_card(*operands):
+    """Make the operands' card current around a launch; yield the handle
+    of that card's current stream, which the launchers take.
+
+    Enter it only around the ctypes call (and what the launcher reads of
+    the card): the previous current device is restored on exit."""
+    dev = launch_device(*operands)
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
 
 
 def build_dir() -> pathlib.Path:

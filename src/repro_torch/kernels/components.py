@@ -66,10 +66,10 @@ def _on_card(u: torch.Tensor) -> bool:
 
 def _launch(name: str, fn: str, u: torch.Tensor, out: torch.Tensor,
             *args: int) -> torch.Tensor:
-    from repro_torch.kernels.build import load
-    err = getattr(load("stream"), fn)(
-        u.data_ptr(), out.data_ptr(), *args,
-        torch.cuda.current_stream(u.device).cuda_stream)
+    from repro_torch.kernels.build import load, on_card
+    with on_card(u, out) as stream:
+        err = getattr(load("stream"), fn)(u.data_ptr(), out.data_ptr(),
+                                          *args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1

@@ -108,10 +108,11 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None,
     # 16-byte vectors along D where every row starts 16-byte aligned.
     vec = int(d * x.element_size() % 16 == 0
               and all(p % 16 == 0 for p in ptrs))
-    err = build.load("conv1d").repro_conv1d(
-        x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[x.dtype], bsz, length, d, w.shape[0],
-        bl, vec, torch.cuda.current_stream(x.device).cuda_stream)
+    with build.on_card(x, w, b, out) as stream:
+        err = build.load("conv1d").repro_conv1d(
+            x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[x.dtype], bsz, length, d,
+            w.shape[0], bl, vec, stream)
     if err != 0:
         raise RuntimeError(f"conv1d kernel launch failed: cudaError_t {err}")
     LAUNCHES["conv1d"] += 1

@@ -173,10 +173,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     wgmma = q.dtype == torch.bfloat16  # the route is chosen by dtype
     lib = "flash_attention_sm90" if wgmma else "flash_attention"
     out = torch.empty_like(q)
-    err = getattr(build.load(lib), f"repro_{lib}")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
-        h, kh, hd, int(causal), hd ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with build.on_card(q, k, v, out) as stream:
+        err = getattr(build.load(lib), f"repro_{lib}")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, h, kh, hd, int(causal), hd ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"{lib} kernel launch failed: cudaError_t {err}")
     LAUNCHES["flash_attention"] += 1

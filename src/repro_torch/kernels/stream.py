@@ -85,11 +85,11 @@ def _device(x: torch.Tensor) -> str:
 
 def _launch(name: str, fn: str, x: torch.Tensor, *args: int
             ) -> torch.Tensor:
-    from repro_torch.kernels.build import load
+    from repro_torch.kernels.build import load, on_card
     out = torch.empty_like(x)
-    err = getattr(load("stream"), fn)(
-        x.data_ptr(), out.data_ptr(), *args,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with on_card(x, out) as stream:
+        err = getattr(load("stream"), fn)(x.data_ptr(), out.data_ptr(),
+                                          *args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     LAUNCHES[name] += 1
@@ -249,11 +249,12 @@ def l2_read_probe(x: torch.Tensor, *, passes: int,
     if x.data_ptr() % 16 or x.numel() // 4 >= 2**31:
         raise ValueError("the probe reads a 16-byte aligned buffer of "
                          "fewer than 2**31 vectors")
-    from repro_torch.kernels.build import load
+    from repro_torch.kernels.build import load, on_card
     out = torch.zeros(1, dtype=torch.int32, device=x.device)
-    err = load("stream").repro_l2_probe(
-        x.data_ptr(), out.data_ptr(), x.numel() // 4, passes, unroll,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with on_card(x, out) as stream:
+        err = load("stream").repro_l2_probe(
+            x.data_ptr(), out.data_ptr(), x.numel() // 4, passes, unroll,
+            stream)
     if err != 0:
         raise RuntimeError(f"l2_read_probe kernel launch failed: "
                            f"cudaError_t {err}")

@@ -31,15 +31,17 @@ F32_TOL = 2e-5
 
 
 def _runner(lib: ctypes.CDLL, name: str, q, k, v, causal: bool):
+    from repro_torch.kernels.build import on_card
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     fn = getattr(lib, f"repro_{name}")
 
     def run():
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
-                 sq, sk, h, kh, hd, int(causal), hd ** -0.5,
-                 torch.cuda.current_stream().cuda_stream)
+        with on_card(q, k, v, out) as stream:
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), b, sq, sk, h, kh, hd, int(causal),
+                     hd ** -0.5, stream)
         if err != 0:
             raise RuntimeError(f"{name} launch failed: cudaError_t {err}")
         return out

@@ -5,7 +5,9 @@
 256 chips) or 2 x 16 x 16 over ``("pod", "data", "model")``, its shards
 on the ``meta`` device, so it holds no storage and asks for no card: the
 sharding rules read only its shape. :func:`make_mesh` is any mesh over
-real devices (the card unless the caller asks for the CPU).
+real devices (the cards present, shard ``i`` on card ``i % count``,
+unless the caller asks for the CPU), as the reference's takes
+``jax.devices()[:n]``.
 """
 from __future__ import annotations
 
@@ -24,5 +26,6 @@ def make_production_mesh(*, multi_pod: bool = False) -> ShardMesh:
 
 def make_mesh(shape: tuple, axes: tuple, devices=None) -> ShardMesh:
     """A mesh of ``shape`` over ``axes``; ``devices`` lists one device a
-    shard (default: every shard on the card)."""
+    shard (default: :func:`repro_torch.dist.mesh.default_devices`, shard
+    ``i`` on ``cuda:{i % device_count()}``)."""
     return ShardMesh(shape, axes, devices)

@@ -20,14 +20,31 @@ prints its bucket, launches and realized iterations; ``--trace PATH``
 writes the run's spans and counters as Chrome-trace JSON, which
 ``python -m repro_torch.obs summarize|validate PATH`` reads.
 
-``--devices N`` decomposes the grid into a row mesh of ``N`` shards on
-``--device`` (:class:`repro_torch.dist.ShardMesh`, every shard on the one
-device) and runs ``engine.run_distributed`` with ``--depth`` (or ``--t``)
-sweeps per ``t·r``-deep halo exchange and ``--overlap auto|on|off``; it
-prints the schedule, the extended shard and the modeled exchange bill.
-With ``--trace`` the distributed run goes through its span-per-phase
-executor, whose spans ``python -m repro_torch.obs summarize PATH``
-reconciles against the bill.
+``--devices N`` decomposes the grid into a row mesh of ``N`` shards
+(:class:`repro_torch.dist.ShardMesh`: on the card, shard ``i`` on
+``cuda:{i % device_count()}``, so N cards take one shard each and one
+card takes them all; ``--device cpu`` puts them on the CPU) and runs
+``engine.run_distributed`` with ``--depth`` (or ``--t``) sweeps per
+``t·r``-deep halo exchange and ``--overlap auto|on|off``; it prints the
+schedule, the extended shard, the device of every shard and the modeled
+exchange bill. With ``--trace`` the distributed run goes through its
+span-per-phase executor, whose spans ``python -m repro_torch.obs
+summarize PATH`` reconciles against the bill.
+
+One process a shard: under ``torch.distributed.run`` (``WORLD_SIZE`` is
+set) the solve runs one shard a rank over a
+:class:`repro_torch.dist.ProcessMesh`, and ``--devices`` must equal
+``WORLD_SIZE``::
+
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.solve --devices 4 --ny 1024 --nx 9216 \
+      --iters 1003 --depth 8 --check
+
+``--dist-backend`` names the transport: ``nccl`` (the default on the
+card: one rank a card) or ``gloo`` (the default with ``--device cpu``; on
+the card the halos are staged through host memory, and ranks may share a
+card). Rank 0 prints the results (and writes ``--trace PATH``; rank
+``k`` writes ``PATH.rank<k>``); a rank that fails exits non-zero.
 
 ``--backend sim`` lowers the policy to a Tensix-style three-kernel
 program and runs the functional simulator (:mod:`repro_torch.backends`)
@@ -49,6 +66,9 @@ rounds once per block and stays near the f32 solve.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
+import os
 import time
 
 import torch
@@ -115,8 +135,15 @@ def main(argv=None) -> None:
                          "request: admission, bucketing, superblocks of "
                          "batched launches, eviction on --tol")
     ap.add_argument("--devices", type=int, default=1,
-                    help="shards in a row mesh on --device (distributed "
-                         "solve when > 1)")
+                    help="shards in a row mesh (distributed solve when > "
+                         "1): on the card shard i sits on cuda:{i % "
+                         "device_count()}; under torch.distributed.run one "
+                         "shard a rank, and it must equal WORLD_SIZE")
+    ap.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                    help="the process group's backend under "
+                         "torch.distributed.run (default: nccl on the card, "
+                         "gloo with --device cpu); gloo on the card stages "
+                         "the halos through host memory")
     ap.add_argument("--depth", type=int, default=1,
                     help="halo exchange depth in sweeps (distributed; --t "
                          "overrides it)")
@@ -133,7 +160,17 @@ def main(argv=None) -> None:
     if args.policy == "ref":
         args.policy = "reference"
     args.fuse = args.t if args.t is not None else args.temporal
+    rank = int(os.environ.get("RANK", 0))
+    if rank:  # one process a shard: rank 0 prints; each rank traces
+        if args.trace:
+            args.trace = f"{args.trace}.rank{rank}"
+        with contextlib.redirect_stdout(io.StringIO()):
+            _main(args)
+    else:
+        _main(args)
 
+
+def _main(args) -> None:
     if args.trace or args.serve:
         # --serve installs a tracer so the progress sink sees its
         # serve.block spans; the file is written on --trace.
@@ -168,6 +205,9 @@ def _dispatch(args) -> None:
     from repro_torch import engine
     from repro_torch.core.stencil import jacobi_2d_5pt, make_laplace_problem
 
+    if "WORLD_SIZE" in os.environ:
+        _ranks(args)
+        return
     dtype = getattr(torch, args.dtype)
     u0 = make_laplace_problem(args.ny, args.nx, dtype=dtype, left=1.0,
                               right=0.0, device=args.device)
@@ -335,13 +375,58 @@ def _serve(args, u0: torch.Tensor) -> None:
         _check(args, u0, inner.to(u0.device), req.iters_done)
 
 
-def _distributed(args, u0: torch.Tensor) -> None:
-    """The solve over a row mesh of ``--devices`` shards on one device."""
+def _ranks(args) -> None:
+    """One shard a rank under ``torch.distributed.run``: every rank makes
+    the same grid on its device and runs the same distributed solve over a
+    :class:`~repro_torch.dist.ProcessMesh`; rank 0 prints."""
+    import torch.distributed as dist
+
+    from repro_torch.core.stencil import make_laplace_problem
+    from repro_torch.dist import ProcessMesh
+
+    world = int(os.environ["WORLD_SIZE"])
+    if args.devices != world:
+        raise SystemExit(f"--devices {args.devices} != WORLD_SIZE {world}: "
+                         f"under torch.distributed.run the solve runs one "
+                         f"shard a rank")
+    if args.serve or args.backend != "torch":
+        raise SystemExit("one process a shard runs the distributed engine; "
+                         "drop --serve/--backend")
+    backend = args.dist_backend or (
+        "nccl" if args.device == "cuda" else "gloo")
+    owned = not dist.is_initialized()
+    if owned:
+        if backend == "nccl" and torch.cuda.device_count():
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0))
+                                  % torch.cuda.device_count())
+        dist.init_process_group(backend)
+    try:
+        mesh = ProcessMesh((world,), ("x",),
+                           device="cpu" if args.device == "cpu" else None)
+        u0 = make_laplace_problem(args.ny, args.nx,
+                                  dtype=getattr(torch, args.dtype), left=1.0,
+                                  right=0.0, device=mesh.device_here)
+        if u0.is_cuda:
+            print(f"card: {torch.cuda.get_device_name(u0.device)}")
+        _distributed(args, u0, mesh)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _distributed(args, u0: torch.Tensor, mesh=None) -> None:
+    """The solve over a row mesh of ``--devices`` shards: in this process
+    (``mesh`` None: a :class:`~repro_torch.dist.ShardMesh` over the cards
+    present, or the CPU) or one shard a rank (a ``ProcessMesh``)."""
     from repro_torch import engine
     from repro_torch.core.stencil import jacobi_2d_5pt
     from repro_torch.dist import ShardMesh
 
-    mesh = ShardMesh((args.devices,), ("x",), [u0.device] * args.devices)
+    if mesh is None:
+        mesh = ShardMesh((args.devices,), ("x",),
+                         ["cpu"] * args.devices if u0.device.type == "cpu"
+                         else None)
+    ranks = getattr(mesh, "backend", None)  # a ProcessMesh's transport
     t = args.t if args.t is not None else args.depth
     overlap = {"auto": None, "on": True, "off": False}[args.overlap]
     spec = jacobi_2d_5pt()
@@ -350,8 +435,11 @@ def _distributed(args, u0: torch.Tensor) -> None:
     sched, shard_shape, _ = engine.plan_distributed(
         u0.shape, u0.dtype, spec, mesh=mesh, policy=args.policy,
         iters=args.iters, t=t, overlap=overlap)
+    where = (f"{args.devices} ranks over {ranks}" if ranks
+             else "in one process")
     print(f"schedule: {sched.describe()}  shard={shard_shape} "
-          f"mesh={args.devices}x1 on {u0.device}")
+          f"mesh={args.devices}x1 {where} on "
+          f"[{', '.join(map(str, mesh.devices))}]")
     bill = engine.price_exchange(sched, shard_shape=shard_shape,
                                  dtype=u0.dtype, spec=spec,
                                  mesh_shape=(args.devices,))
@@ -364,10 +452,10 @@ def _distributed(args, u0: torch.Tensor) -> None:
     if u0.device.type == "cuda":
         with use_tracer(None):  # builds the kernels, warms the allocator
             solve()
-        _sync(u0.device)
+    _sync(u0.device)
     t0 = time.perf_counter()
     out = solve()
-    _sync(u0.device)
+    _sync(u0.device)  # the grid's card waits on every shard's copy
     dt = time.perf_counter() - t0
     inner = out[1:-1, 1:-1].to(torch.float32)
     res = float(engine.residual_for(spec)(out))
@@ -376,7 +464,7 @@ def _distributed(args, u0: torch.Tensor) -> None:
     gpts = args.ny * args.nx * args.iters / dt / 1e9
     print(f"wall={dt:.6f}s  GPt/s={gpts:.3f}  residual={res:.3e}  "
           f"mean={float(inner.mean()):.6f}  max={float(inner.max()):.6f}")
-    if args.check:
+    if args.check and not (ranks and mesh.rank):  # one rank checks
         solo = engine.run(u0, spec, policy=sched.policy, iters=args.iters,
                           t=sched.t)
         if not torch.equal(out, solo):

@@ -330,7 +330,7 @@ def test_dbuf_runs_of_any_length_bitwise(cuda, per, dtype):
         u.data_ptr(), out.data_ptr(), 1, P._DTYPE_CODE[dtype], 2, 203, 1101,
         1, plan.bm, plan.bn, plan.row_tiles, plan.col_tiles, per,
         TE.plan.window_pitch(plan.bn, 1, dtype.itemsize), n, dy, dx, w,
-        plan.vmem_bytes, P._stream(u))
+        plan.vmem_bytes, torch.cuda.current_stream(u.device).cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     assert torch.equal(out, TE.stencil_dbuf_plain(u, spec))
@@ -358,7 +358,7 @@ def test_sweep_launchers_refuse_what_they_do_not_take(cuda, policy):
     n, dy, dx, w = P._tap_args(spec)
     pitch = TE.plan.window_pitch(plan.bn, 1, 4)
     lib = P._lib()
-    stream = P._stream(u)
+    stream = torch.cuda.current_stream(u.device).cuda_stream
 
     def call(geometry=0, taps=n, pitch=pitch, smem=plan.vmem_bytes):
         head = [u.data_ptr(), out.data_ptr(), geometry, 0, 1, 20, 40, 1,
@@ -1254,3 +1254,59 @@ def test_compressed_psum_card_equals_cpu(cuda):
             assert torch.equal(m_c[r]["w"].cpu(), m_h[r]["w"])
             assert torch.equal(e_c[r].residual["w"].cpu(),
                                e_h[r].residual["w"])
+
+
+# ------------------ kernels and meshes over two cards ------------------
+
+@pytest.fixture
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip(f"needs 2 cards; {torch.cuda.device_count()} present")
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k1_on_the_second_card_while_the_first_is_current(two_cards, dtype):
+    """K1 (masked) launches on its grid's card, whichever card is current,
+    and equals its plain version bit for bit; a mask on the other card is
+    refused."""
+    first, second = two_cards
+    spec = TS.jacobi_2d_5pt()
+    u = _grid((70, 300), dtype, second, seed=3)
+    mask = torch.zeros(u.shape, dtype=torch.uint8, device=second)
+    mask[:5] = 1
+    with torch.cuda.device(first):
+        got = TE.stencil_temporal(u, spec, t=4, mask=mask)
+        torch.cuda.synchronize(second)
+        assert got.device == second
+        assert torch.cuda.current_device() == first.index
+        with pytest.raises(ValueError, match="one card"):
+            TE.stencil_temporal(u, spec, t=4, mask=mask.to(first))
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=4,
+                                                      mask=mask))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k8_on_the_second_card_while_the_first_is_current(two_cards, dtype):
+    from repro_torch.kernels import flash_attention as TF
+    first, second = two_cards
+    q, k, v = _qkv(2, 256, 8, 2, 128, dtype, second)
+    with torch.cuda.device(first):
+        got = TF.flash_attention_local(q, k, v, bq=256, bk=256)
+        torch.cuda.synchronize(second)
+    want = TF.flash_attention_local_plain(q, k, v)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_mesh_over_two_cards_equals_one_card(two_cards, overlap):
+    """A (2,) mesh with one shard a card (the default layout) gives the
+    one-card solve bit for bit, overlap on and off."""
+    from repro_torch.dist import ShardMesh
+    mesh = ShardMesh((2,), ("x",))
+    assert mesh.devices == two_cards
+    u = TS.make_laplace_problem(62, 254, device=two_cards[0])
+    got = TE.run_distributed(u, mesh=mesh, policy="temporal", iters=19, t=4,
+                             overlap=overlap)
+    assert torch.equal(got, TE.run(u, policy="temporal", iters=19, t=4))

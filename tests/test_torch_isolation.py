@@ -35,7 +35,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.kernels.components", "repro_torch.launch.access",
             "repro_torch.core.decomp", "repro_torch.core.halo",
             "repro_torch.dist", "repro_torch.dist.mesh",
-            "repro_torch.dist.stencil",
+            "repro_torch.dist.stencil", "repro_torch.dist.process",
             "repro_torch.engine.distributed", "repro_torch.backends",
             "repro_torch.backends.ir", "repro_torch.backends.lower",
             "repro_torch.backends.sim", "repro_torch.backends.report",

@@ -6,6 +6,8 @@ file's: f32 1e-6 for one sweep, rtol 1e-5 / atol 1e-6 for several, bf16
 2e-2. On a CPU tensor each port wrapper runs its plain version, so the
 wrapper and the plain function agree bit for bit.
 """
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -226,7 +228,9 @@ def test_sweep_launch_arguments(monkeypatch, policy, spec_name, variant,
     from repro_torch.kernels.build import SIGNATURES
     lib = _StubLib()
     monkeypatch.setattr(P, "_lib", lambda: lib)
-    monkeypatch.setattr(P, "_stream", lambda u: 7)
+    # The launch's card and stream (kernels.build.on_card) stand in too.
+    monkeypatch.setattr(P, "_on_card",
+                        lambda *operands: contextlib.nullcontext(7))
     ts = SPECS[spec_name][1]
     r = ts.radius
     u = torch.zeros((3, 1024 + 2 * r, 9216 + 2 * r), dtype=dtype)
