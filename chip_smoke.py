@@ -276,14 +276,15 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     loss finite and no kernel launched (ms a step, peak memory, ce), and
     one more under ``torch.profiler`` (its busy share and top kernels);
 19. training: ``python -m repro_torch.launch.train --arch qwen2.5-3b
-    --steps 20 --batch 8 --seq 128 --ckpt-every 20`` at full width and
-    depth (20 finite losses; ms a step, peak memory, ce each step), then
+    --steps 5 --batch 8 --seq 128 --ckpt-every 20`` at full width and
+    depth (5 finite losses; ms a step, peak memory, ce each step), then
     the same step in this process, three timed and one profiled (a
     checkpoint of that state would not fit the time: the 2-layer state's
     save and restore are timed below, with the disk's free space); at
     full width and 2 layers, with deterministic algorithms: a run killed
     once its step-5 checkpoint is on disk and resumed with ``--resume
-    auto`` must end in the uninterrupted run's state bit for bit (the
+    auto`` must end in the uninterrupted run's state bit for bit after
+    10 steps (the
     digest of every parameter and moment), the gradients at ``accum=2``
     within 5e-2 of each tensor's largest at ``accum=1``, and a run whose
     step raises once must restore, retry and end in the clean run's
@@ -320,7 +321,18 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     forward bit for bit the sequential one at equal microbatch size and
     within 2e-5 of max |y| of the whole batch at once (its GEMMs sum 4x
     the rows in another order), the gradients within 5e-4 / 5e-5; ``compressed_psum`` over 4 replicas, int8 and bf16, on the card
-    bit for bit the CPU's;
+    bit for bit the CPU's; ``remesh_state`` of a state from (2, 2) onto
+    (2,), gathered bit for bit. Each piece's inputs come from its own
+    seed. (d) The same pieces one rank a shard: four gloo ranks sharing
+    the card (``dist.process.spawn``), each drawing phase (c)'s inputs
+    (its pipeline stage of 9 layers from the generator state (c) kept),
+    on ``ProcessMesh``es (2, 2) and (4,): K8 under ``use_mesh`` (1 launch
+    a rank), K7 after the ``ppermute`` halo (1 a rank), the SSD, the
+    pipeline's forward and gradients, ``compressed_psum`` and the remesh
+    onto (2,) over ranks 0-1, each rank's result bit for bit (c)'s for
+    its shard (``state_digest``); the pipeline's host us a step a rank.
+    With 4 cards or more the same runs over NCCL, one rank a card;
+    otherwise it prints that it did not run;
 21. one JSON line listing the kernels, then the card's name and power
     limit, then the result line. Each phase's seconds are printed as it
     ends, and all of them before the JSON line.
@@ -3133,16 +3145,18 @@ def full_width_profile() -> None:
     torch.cuda.empty_cache()
 
 
-def train_cli(*args: str, ckpt: str, **popen) -> subprocess.Popen:
+def train_cli(*args: str, ckpt: str, steps: int = 10,
+              **popen) -> subprocess.Popen:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         TRAIN_ARCH, "--batch", "8", "--seq", "128", "--steps", "20",
+         TRAIN_ARCH, "--batch", "8", "--seq", "128", "--steps", str(steps),
          "--ckpt-dir", ckpt, *args], cwd=ROOT, env=env, text=True, **popen)
 
 
-def run_cli(*args: str, ckpt: str, timeout: int = 600) -> str:
-    proc = train_cli(*args, ckpt=ckpt, stdout=subprocess.PIPE,
+def run_cli(*args: str, ckpt: str, timeout: int = 600,
+            steps: int = 10) -> str:
+    proc = train_cli(*args, ckpt=ckpt, steps=steps, stdout=subprocess.PIPE,
                      stderr=subprocess.PIPE)
     out, err = proc.communicate(timeout=timeout)
     check(proc.returncode == 0, f"launch.train {args} exited "
@@ -3220,7 +3234,9 @@ def train_families(smi: str) -> None:
 
 def checkpoint_rates(state, ckpt_dir: str) -> None:
     """Time a synchronous checkpoint of ``state`` (the host copy and the
-    write) and its restore, and price a full-width state by them."""
+    write) and its restore, and price a full-width state by them (phase
+    19 times the parameters of its 2-layer state, a third of the state's
+    bytes: the rate, not the whole state, is what it reads)."""
     import shutil
     from repro_torch.train import checkpoint as ckpt
     t0 = time.perf_counter()
@@ -3232,7 +3248,7 @@ def checkpoint_rates(state, ckpt_dir: str) -> None:
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     full = configs.get_config(TRAIN_ARCH).n_params() * 12 / 1e9
-    print(f"a synchronous checkpoint of this state: {gb:.2f} GB saved in "
+    print(f"a synchronous checkpoint of these tensors: {gb:.2f} GB saved in "
           f"{save_s:.1f} s ({gb / save_s:.2f} GB/s with the host copy), "
           f"restored in {load_s:.1f} s ({gb / load_s:.2f} GB/s); "
           f"{shutil.disk_usage(ckpt_dir).free / 1e9:.1f} GB free on its "
@@ -3274,12 +3290,14 @@ def train_gates(tmp: str) -> None:
     del g1, g2
 
     opt = O.adamw(1e-4)
-    data = [family_batch(cfg, seed=10 + i, b=8, s=128) for i in range(5)]
+    # 4 steps: the failure at step 3 restores the one checkpoint, step 2's
+    # (each is 5.6 GB at this width).
+    data = [family_batch(cfg, seed=10 + i, b=8, s=128) for i in range(4)]
     step = make_train_step(model, opt)
     clean = FaultTolerantRunner(step, init_state(model, opt), FaultConfig(
-        ckpt_dir=os.path.join(tmp, "clean"), ckpt_every=100)).run(data, 5)
+        ckpt_dir=os.path.join(tmp, "clean"), ckpt_every=100)).run(data, 4)
     want = state_digest(clean)
-    checkpoint_rates(clean, os.path.join(tmp, "timed"))
+    checkpoint_rates(clean.params, os.path.join(tmp, "timed"))
     del clean
     model = build_model(cfg, device="cuda",
                         generator=torch.Generator("cuda").manual_seed(3))
@@ -3294,7 +3312,7 @@ def train_gates(tmp: str) -> None:
 
     runner = FaultTolerantRunner(flaky, init_state(model, opt), FaultConfig(
         ckpt_dir=os.path.join(tmp, "flaky"), ckpt_every=2))
-    got = state_digest(runner.run(data, 5))
+    got = state_digest(runner.run(data, 4))
     print(f"an injected failure at step 3 (checkpoint of step 2 restored, "
           f"the step retried): restores {runner.restores}, final state "
           f"digest {got} vs the clean run's {want}")
@@ -3323,27 +3341,10 @@ def train_gates(tmp: str) -> None:
           "K8 and K7 must refuse a gradient on the card before launching")
 
 
-def phase_train(smi: str, stats) -> None:
-    import shutil
-    import tempfile
-    print(f"== phase 19: training, {TRAIN_ARCH} through launch.train at full "
-          f"width, accumulation, resume and failure gates at 2 layers, one "
-          f"step of each family, the example twins ==")
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    reset_all_launches()
-    # Full width and depth, the reference launcher's defaults. A checkpoint
-    # of this state (params + two moments, ~37 GB) would take about a
-    # minute to write, and three exceed the disk: checkpoints are gated at
-    # 2 layers below.
-    out = run_cli("--ckpt-every", "20", ckpt=os.path.join(tmp, "full"),
-                  timeout=900)
-    ces, ms, _ = cli_numbers(out)
-    print("\n".join(line for line in out.splitlines()
-                    if not line.startswith("state digest")))
-    check(len(ces) == 20 and all(np.isfinite(ces)),
-          f"the full-width run must report 20 finite losses: {ces}")
-    full_width_profile()
-
+def kill_and_resume(tmp: str) -> None:
+    """At 2 layers: a run killed once its step-5 checkpoint is on disk,
+    resumed with ``--resume auto``, must end in the uninterrupted run's
+    state bit for bit."""
     gate = ("--layers", "2", "--deterministic")
     # The uninterrupted run and the run to kill go side by side (each is
     # deterministic alone); the resumed run follows the kill.
@@ -3376,24 +3377,73 @@ def phase_train(smi: str, stats) -> None:
     check(bool(from_step) and again[2] == full[2],
           "the resumed run must end in the uninterrupted run's state "
           "(deterministic algorithms)")
-    train_gates(tmp)
-    train_families(smi)
-    t0 = time.perf_counter()
-    runs = {example: subprocess.Popen(
+
+
+def phase_train(smi: str, stats) -> None:
+    import shutil
+    import tempfile
+    print(f"== phase 19: training, {TRAIN_ARCH} through launch.train at full "
+          f"width, accumulation, resume and failure gates at 2 layers, one "
+          f"step of each family, the example twins ==")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    reset_all_launches()
+    parts: dict = {}
+    mark = [time.perf_counter()]
+
+    def part(name):  # the seconds since the last mark, printed at the end
+        now = time.perf_counter()
+        parts[name] = round(now - mark[0], 1)
+        mark[0] = now
+
+    # Full width and depth, the reference launcher's defaults but 5 steps
+    # (the first step's warm-up, then a few to read: this phase is the
+    # script's longest). A checkpoint of this state (params + two
+    # moments, ~37 GB) would take about a minute to write, and three
+    # exceed the disk: checkpoints are gated at 2 layers below.
+    out = run_cli("--ckpt-every", "20", ckpt=os.path.join(tmp, "full"),
+                  timeout=900, steps=5)
+    ces, ms, _ = cli_numbers(out)
+    print("\n".join(line for line in out.splitlines()
+                    if not line.startswith("state digest")))
+    check(len(ces) == 5 and all(np.isfinite(ces)),
+          f"the full-width run must report 5 finite losses: {ces}")
+    part("full-width CLI")
+    full_width_profile()
+    part("full-width profile")
+
+    # The example twins start here and run beside the kill-and-resume
+    # gate's processes (both are gates, neither is timed); they are
+    # collected before the in-process gates, whose checkpoint is timed.
+    t_examples = time.perf_counter()
+    examples = {example: subprocess.Popen(
         [sys.executable, "-m", f"repro_torch.examples.{example}",
          *(["--ckpt-dir", os.path.join(tmp, "ft")]
            if example.startswith("fault") else [])],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for example in ("train_lm", "fault_tolerant_training")}
-    for example, proc in runs.items():
-        out, err = proc.communicate(timeout=600)
-        print(f"examples.{example}: exit {proc.returncode} (both side by "
-              f"side in {time.perf_counter() - t0:.1f}s); "
-              f"{out.strip().splitlines()[-1] if out else ''}")
-        check(proc.returncode == 0, f"{example} failed: {err[-2000:]}")
+    try:
+        kill_and_resume(tmp)
+        for example, proc in examples.items():
+            out, err = proc.communicate(timeout=600)
+            print(f"examples.{example}: exit {proc.returncode} (beside the "
+                  f"kill-and-resume gate, done by "
+                  f"{time.perf_counter() - t_examples:.1f}s); "
+                  f"{out.strip().splitlines()[-1] if out else ''}")
+            check(proc.returncode == 0, f"{example} failed: {err[-2000:]}")
+    finally:  # a failed gate leaves no example running
+        for proc in examples.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    part("kill and resume, examples")
+    train_gates(tmp)
+    part("gates")
+    train_families(smi)
+    part("families")
     check(sum(all_launches().values()) == 0,
           f"training launched a kernel: {all_launches()}")
+    print(f"phase 19 parts, s: {json.dumps(parts)}")
     shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -3636,7 +3686,104 @@ def phase_roofline(smi: str, peaks, stats) -> None:
     stats["roofline_cells"] = rows
 
 
-def phase_c2(smi: str, stats) -> None:
+# Phase 20c/20d's inputs, each drawn from its own seed so that a rank of
+# phase 20d draws what phase 20c drew: K8 at qwen2.5-3b's heads, K7 on
+# mamba2-2.7b's conv, the sequence-parallel SSD at the reference test's
+# shapes and mamba2-2.7b's heads, the pipeline's input, the compressed
+# sum's and the remesh's tensors; the pipeline's 36 layers come from one
+# generator whose state is kept at each stage's first layer.
+C2_SSD = (("tests/test_ssm_sp.py", (2, 256, 4, 8, 16, 32)),
+          ("mamba2-2.7b heads", (1, 2048, 80, 64, 128, 256)))
+C2_PIPE = {"stages": 4, "micro": 4, "mb": 2, "seq": 128}
+C2_PSUM = {"wq": (2048, 2048), "wk": (2048, 256), "bq": (2048,)}
+# qwen2.5-3b's attention axes for the remesh's state (layers/attention.py)
+C2_REMESH_SPECS = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+                   "bq": ("heads",)}
+
+
+def c2_gen(seed: int, device) -> torch.Generator:
+    return torch.Generator(device).manual_seed(seed)
+
+
+def c2_flash_inputs(device):
+    g = c2_gen(20, device)
+    return tuple(torch.randn(shape, generator=g, device=device).to(
+        torch.bfloat16) for shape in ((4, 2048, 16, 128), (4, 2048, 2, 128),
+                                      (4, 2048, 2, 128)))
+
+
+def c2_conv_inputs(device):
+    g = c2_gen(21, device)
+    x = torch.randn((4, 2048, 5376), generator=g, device=device)
+    w = torch.randn((4, 5376), generator=g, device=device) * 0.5
+    bias = torch.randn((5376,), generator=g, device=device)
+    return tuple(t.to(torch.bfloat16) for t in (x, w, bias))
+
+
+def c2_ssd_inputs(shape, device):
+    bsz, length, m, p, nst, _ = shape
+    g = c2_gen(22, device)
+    xs = torch.randn((bsz, length, 1, m, p), generator=g, device=device)
+    dt = F.softplus(torch.randn((bsz, length, 1, m), generator=g,
+                                device=device))
+    a = -torch.exp(torch.randn((1, m), generator=g, device=device) * 0.3)
+    bm, cm = (torch.randn((bsz, length, 1, nst), generator=g,
+                          device=device) * 0.3 for _ in range(2))
+    return xs, dt, a, bm, cm
+
+
+def c2_pipe_cfg():
+    return dataclasses.replace(configs.get_config("qwen2.5-3b"),
+                               dtype=torch.float32, remat="none")
+
+
+def c2_pipe_input(cfg, device):
+    p = C2_PIPE
+    return torch.randn((p["micro"], p["mb"], p["seq"], cfg.d_model),
+                       generator=c2_gen(23, device), device=device)
+
+
+def c2_stage_fn(cfg, device):
+    pos = torch.arange(C2_PIPE["seq"], device=device).expand(
+        C2_PIPE["mb"], C2_PIPE["seq"])
+
+    def stage_fn(stage_layers, h):
+        for layer in stage_layers:
+            h = layer(h, pos[:h.shape[0]], cfg)[0]
+        return h
+    return stage_fn
+
+
+def c2_psum_inputs(device):
+    g = c2_gen(24, device)
+    grads = [{n: torch.randn(s, generator=g, device=device)
+              for n, s in C2_PSUM.items()} for _ in range(4)]
+    res = [{n: torch.randn(s, generator=g, device=device) * 1e-3
+            for n, s in C2_PSUM.items()} for _ in range(4)]
+    return grads, res
+
+
+def c2_remesh_state(device):
+    from repro_torch.train.trainstep import TrainState
+    g = c2_gen(25, device)
+    return TrainState({n: torch.randn(s, generator=g, device=device)
+                       for n, s in C2_PSUM.items()},
+                      {"step": torch.tensor(3, device=device)})
+
+
+def c2_blocks(state) -> list:
+    """Every leaf's blocks in this process, by shard: shard ``i``'s leaves
+    in name order (the step counter last)."""
+    leaves = [state.params[n] for n in sorted(state.params)]
+    leaves.append(state.opt_state["step"])
+    return [[leaf.shards[i] for leaf in leaves]
+            for i in range(len(leaves[0].shards))]
+
+
+def phase_c2(smi: str, stats, want: dict) -> None:
+    """Phase 20c: the sharded LM pieces on in-process meshes of the card;
+    ``want`` gets the digests (``train.checkpoint.state_digest``) of each
+    piece's result by shard, which phase 20d's ranks are held to."""
     from repro_torch.core import ssm_sp
     from repro_torch.dist import sharding as shd
     from repro_torch.dist.pipeline import pipeline_forward, split_stages
@@ -3644,13 +3791,11 @@ def phase_c2(smi: str, stats) -> None:
     from repro_torch.layers.ssm import ssd_scan
     from repro_torch.models.lm import DecoderLayer
     from repro_torch.train.compression import EFState, compressed_psum
+    from repro_torch.train.fault import remesh_state
     print("== phase 20c: the sharded LM pieces on in-process meshes of "
           f"the card; {smi} ==")
     # K8 sharded over a (2, 2) data x model mesh at qwen2.5-3b's heads
-    g = torch.Generator("cuda").manual_seed(20)
-    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(
-        torch.bfloat16) for shape in ((4, 2048, 16, 128), (4, 2048, 2, 128),
-                                      (4, 2048, 2, 128)))
+    q, k, v = c2_flash_inputs("cuda")
     whole = flash.flash_attention_local(q, k, v, causal=True)
     mesh = make_mesh((2, 2), ("data", "model"))
     reset_all_launches()
@@ -3661,72 +3806,60 @@ def phase_c2(smi: str, stats) -> None:
     check(n == 4 and torch.equal(got, whole),
           f"sharded K8 on (2, 2): {n} launches, equal "
           f"{torch.equal(got, whole)}")
+    want["k8"] = state_digest(got)
     stats["flash"].setdefault("paths", {})[
         "phase 20 ops.flash_attention on a (2, 2) data x model mesh"] = n
     print(f"K8 on a (2, 2) data x model mesh, B=4 S=2048 H=16 K=2 hd=128 "
           f"bf16: 4 launches (a batch half x a KV head each), bit for bit "
           f"the unsharded call")
     # K7 on 4 sequence shards of mamba2-2.7b's conv (conv_dim 5376)
-    x = torch.randn((4, 2048, 5376), generator=g, device="cuda").to(
-        torch.bfloat16)
-    w = (torch.randn((4, 5376), generator=g, device="cuda") * 0.5).to(
-        torch.bfloat16)
-    bias = torch.randn((5376,), generator=g, device="cuda").to(
-        torch.bfloat16)
+    x, w, bias = c2_conv_inputs("cuda")
     sp = make_mesh((4,), ("sp",))
-    want = conv.conv1d_depthwise_causal(x, w, bias)
+    full = conv.conv1d_depthwise_causal(x, w, bias)
     reset_all_launches()
     ext = ssm_sp.conv_halo_exchange(
         shd.lay_out(x, (None, "sp"), sp).shards, 4)
-    got = torch.cat([conv.conv1d_depthwise_causal(e, w, bias)[:, 3:]
-                     for e in ext], 1)
+    outs = [conv.conv1d_depthwise_causal(e, w, bias)[:, 3:] for e in ext]
+    got = torch.cat(outs, 1)
     torch.cuda.synchronize()
     n = conv.LAUNCHES["conv1d"]
-    check(n == 4 and torch.equal(got, want),
+    check(n == 4 and torch.equal(got, full),
           f"K7 on 4 sequence shards: {n} launches, equal "
-          f"{torch.equal(got, want)}")
+          f"{torch.equal(got, full)}")
+    want["k7"] = [state_digest(o) for o in outs]
     stats["conv1d"].setdefault("paths", {})[
         "phase 20 conv_halo_exchange + K7, 4 sequence shards"] = n
     print("K7 after conv_halo_exchange on 4 sequence shards (B=4 L=4x512 "
           "D=5376 K=4 bf16): 4 launches, bit for bit the unsharded conv")
     # the sequence-parallel SSD: the reference test's shapes, and
     # mamba2-2.7b's heads (80 of 64, state 128, chunk 256)
-    for label, (bsz, length, m, p, nst, ch) in (
-            ("tests/test_ssm_sp.py", (2, 256, 4, 8, 16, 32)),
-            ("mamba2-2.7b heads", (1, 2048, 80, 64, 128, 256))):
-        xs = torch.randn((bsz, length, 1, m, p), generator=g, device="cuda")
-        dt = F.softplus(torch.randn((bsz, length, 1, m), generator=g,
-                                    device="cuda"))
-        a = -torch.exp(torch.randn((1, m), generator=g, device="cuda") * 0.3)
-        bm, cm = (torch.randn((bsz, length, 1, nst), generator=g,
-                              device="cuda") * 0.3 for _ in range(2))
-        want, _ = ssd_scan(xs, dt, a, bm, cm, ch, torch.float32)
+    for label, shape in C2_SSD:
+        xs, dt, a, bm, cm = c2_ssd_inputs(shape, "cuda")
+        ch = shape[-1]
+        ref, _ = ssd_scan(xs, dt, a, bm, cm, ch, torch.float32)
         parts = [shd.lay_out(t, (None, "sp"), sp).shards
                  for t in (xs, dt, bm, cm)]
-        got = torch.cat(ssm_sp.ssd_sequence_parallel(
-            *parts[:2], a, *parts[2:], ch), 1)
-        err = float((got - want).abs().max())
-        scale = max(1.0, float(want.abs().max()))
+        ys = ssm_sp.ssd_sequence_parallel(*parts[:2], a, *parts[2:], ch)
+        want[f"ssd {label}"] = [state_digest(y) for y in ys]
+        err = float((torch.cat(ys, 1) - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
         print(f"ssd_sequence_parallel, 4 shards, {label}: max |err| "
               f"{err:.3e} vs the single-device SSD (max |y| "
-              f"{float(want.abs().max()):.3f}; bound 2e-4 x max(1, |y|))")
+              f"{float(ref.abs().max()):.3f}; bound 2e-4 x max(1, |y|))")
         check(err < 2e-4 * scale, f"sequence-parallel SSD off by {err}")
     # qwen2.5-3b's 36 layers in 4 pipeline stages, f32
-    cfg = dataclasses.replace(configs.get_config("qwen2.5-3b"),
-                              dtype=torch.float32, remat="none")
-    init = ParamInit(cfg, device="cuda",
-                     generator=torch.Generator("cuda").manual_seed(3))
-    layers = [DecoderLayer(init, cfg) for _ in range(cfg.n_layers)]
-    mb, seq, micro = 2, 128, 4
-    pos = torch.arange(seq, device="cuda").expand(mb, seq)
-    xin = torch.randn((micro, mb, seq, cfg.d_model), generator=g,
-                      device="cuda")
-
-    def stage_fn(stage_layers, h):
-        for layer in stage_layers:
-            h = layer(h, pos[:h.shape[0]], cfg)[0]
-        return h
-
+    cfg = c2_pipe_cfg()
+    gen = c2_gen(3, "cuda")
+    init = ParamInit(cfg, device="cuda", generator=gen)
+    per_stage = cfg.n_layers // C2_PIPE["stages"]
+    layers, want["pipe_gen"] = [], []
+    for i in range(cfg.n_layers):
+        if i % per_stage == 0:
+            want["pipe_gen"].append(gen.get_state().tolist())
+        layers.append(DecoderLayer(init, cfg))
+    micro, mb, seq = C2_PIPE["micro"], C2_PIPE["mb"], C2_PIPE["seq"]
+    xin = c2_pipe_input(cfg, "cuda")
+    stage_fn = c2_stage_fn(cfg, "cuda")
     pipe = pipeline_forward(stage_fn, make_mesh((4,), ("stage",)))
     stages = split_stages(layers, 4)
     params = [p for layer in layers for p in layer.parameters()]
@@ -3768,15 +3901,16 @@ def phase_c2(smi: str, stats) -> None:
     print(f"pipeline gradients of {len(params)} tensors vs the whole "
           f"batch's: largest excess over 5e-4*|g| {worst:.3e} (atol 5e-5)")
     check(worst <= 5e-5, f"pipeline gradients off: {worst}")
+    per_p = len(params) // C2_PIPE["stages"]
+    want.update(pipe_y=state_digest(y.detach()), pipe_scale=scale,
+                pipe_g=[state_digest(list(gp[s * per_p:(s + 1) * per_p]))
+                        for s in range(C2_PIPE["stages"])])
     del layers, params, gp, gs, y, yw, stages
     gc.collect()
     torch.cuda.empty_cache()
     # the compressed all-reduce over 4 replicas, card against CPU
-    names = {"wq": (2048, 2048), "wk": (2048, 256), "bq": (2048,)}
-    grads = [{n: torch.randn(s, generator=g, device="cuda")
-              for n, s in names.items()} for _ in range(4)]
-    res = [EFState({n: torch.randn(s, generator=g, device="cuda") * 1e-3
-                    for n, s in names.items()}) for _ in range(4)]
+    grads, res = c2_psum_inputs("cuda")
+    res = [EFState(r) for r in res]
     for mode in ("int8", "bf16"):
         m_c, e_c = compressed_psum(grads, res, mode)
         m_h, e_h = compressed_psum(
@@ -3786,10 +3920,185 @@ def phase_c2(smi: str, stats) -> None:
         same = all(torch.equal(m_c[r][n].cpu(), m_h[r][n])
                    and torch.equal(e_c[r].residual[n].cpu(),
                                    e_h[r].residual[n])
-                   for r in range(4) for n in names)
+                   for r in range(4) for n in C2_PSUM)
         check(same, f"compressed_psum ({mode}) on the card != on the CPU")
+        want[f"psum {mode}"] = [state_digest([m_c[r], e_c[r].residual])
+                                for r in range(4)]
         print(f"compressed_psum over 4 replicas ({mode}): means and "
               f"residuals on the card bit for bit the CPU port's")
+    # remesh_state from (2, 2) onto (2,): the blocks each shard holds
+    state = c2_remesh_state("cuda")
+    cur = remesh_state(state, mesh, C2_REMESH_SPECS)
+    new = remesh_state(cur, make_mesh((2,), ("data",)), C2_REMESH_SPECS)
+    check(all(torch.equal(new.params[n].full(), state.params[n])
+              for n in C2_PSUM), "remesh_state (2, 2) -> (2,) lost data")
+    want["remesh"] = {"(2, 2)": [state_digest(b) for b in c2_blocks(cur)],
+                      "(2,)": [state_digest(b) for b in c2_blocks(new)]}
+    print("remesh_state of wq, wk, bq and the step from (2, 2) onto (2,): "
+          "gathered, the original bit for bit")
+
+
+def rank_c2(rank: int, out_dir: str, want: dict) -> None:
+    """One rank of phase 20d (started by ``dist.process.spawn``): each
+    sharded LM piece of phase 20c one rank a shard over the process
+    group, on this rank's card, on the inputs phase 20c drew (the same
+    seeds; this rank's pipeline stage from the generator state phase 20c
+    kept), its result's digest held to phase 20c's for this rank's
+    shard; the K8 and K7 launches counted; one JSON file a rank."""
+    from repro_torch.core import ssm_sp
+    from repro_torch.dist import ProcessMesh
+    from repro_torch.dist import sharding as shd
+    from repro_torch.dist.pipeline import pipeline_forward
+    from repro_torch.kernels import ops
+    from repro_torch.models.lm import DecoderLayer
+    from repro_torch.train.compression import EFState, compressed_psum
+    from repro_torch.train.fault import remesh_state
+    # As phase 20c's process computes: TF32 off, and cuBLAS at its default
+    # workspace (phase 19 sets the variable after this process's parent
+    # made its cuBLAS handles; a workspace of another size may pick other
+    # GEMM algorithms, which sum in another order).
+    os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: dict = {}
+
+    def same(key, got, digest):
+        out[key] = {"equal": state_digest(got) == digest}
+        return out[key]
+
+    square = ProcessMesh((2, 2), ("data", "model"))
+    dev = square.device_here
+    q, k, v = c2_flash_inputs(dev)
+    reset_all_launches()
+    with shd.use_mesh(square):
+        got = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize(dev)
+    same("k8", got, want["k8"])["launches"] = flash.LAUNCHES[
+        "flash_attention_wgmma"]
+    sp = ProcessMesh((4,), ("sp",))
+    x, w, bias = c2_conv_inputs(dev)
+    mine = shd.lay_out(x, (None, "sp"), sp).shards[0]
+    reset_all_launches()
+    ext = ssm_sp.conv_halo_exchange(mine, 4, mesh=sp, axis="sp")
+    got = conv.conv1d_depthwise_causal(ext, w, bias)[:, 3:]
+    torch.cuda.synchronize(dev)
+    same("k7", got, want["k7"][rank])["launches"] = conv.LAUNCHES["conv1d"]
+    for label, shape in C2_SSD:
+        xs, dt, a, bm, cm = c2_ssd_inputs(shape, dev)
+        parts = [shd.lay_out(t, (None, "sp"), sp).shards[0]
+                 for t in (xs, dt, bm, cm)]
+        same(f"ssd {label}", ssm_sp.ssd_sequence_parallel(
+            parts[0], parts[1], a, parts[2], parts[3], shape[-1], mesh=sp,
+            axis="sp"), want[f"ssd {label}"][rank])
+    # this rank's stage of qwen2.5-3b: its 9 layers drawn from the state
+    # phase 20c's generator had at the stage's first layer
+    cfg = c2_pipe_cfg()
+    stage = ProcessMesh((4,), ("stage",))
+    gen = c2_gen(3, dev)
+    gen.set_state(torch.tensor(want["pipe_gen"][rank], dtype=torch.uint8))
+    init = ParamInit(cfg, device=dev, generator=gen)
+    layers = [DecoderLayer(init, cfg)
+              for _ in range(cfg.n_layers // C2_PIPE["stages"])]
+    params = [p for layer in layers for p in layer.parameters()]
+    pipe = pipeline_forward(c2_stage_fn(cfg, dev), stage)
+    xin = c2_pipe_input(cfg, dev)
+    steps = C2_PIPE["micro"] + C2_PIPE["stages"] - 1
+
+    def forward_backward():
+        torch.distributed.barrier()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        y = pipe(layers, xin)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad((y ** 2).mean() / want["pipe_scale"],
+                                    params)
+        torch.cuda.synchronize(dev)
+        return y.detach(), list(grads), (t1 - t0, time.perf_counter() - t1)
+
+    # The first call pays for the ranks' first messages each way and the
+    # card's first kernels; the second is timed.
+    _, _, first = forward_backward()
+    y, grads, (fwd, bwd) = forward_backward()
+    same("pipe y", y, want["pipe_y"])
+    same("pipe grads", grads, want["pipe_g"][rank])
+    out["pipe us a step"] = {"forward": fwd / steps * 1e6,
+                             "backward": bwd / steps * 1e6,
+                             "first call s": sum(first)}
+    del layers, params, grads, y
+    dp = ProcessMesh((4,), ("dp",))
+    grads, res = c2_psum_inputs(dev)
+    for mode in ("int8", "bf16"):
+        mean, ef = compressed_psum(grads[rank], EFState(res[rank]), mode,
+                                   mesh=dp, axis="dp")
+        same(f"psum {mode}", [mean, ef.residual], want[f"psum {mode}"][rank])
+    cur = remesh_state(c2_remesh_state(dev), square, C2_REMESH_SPECS)
+    small = ProcessMesh((2,), ("data",), ranks=[0, 1])
+    new = remesh_state(cur, small, C2_REMESH_SPECS)
+    same("remesh (2, 2)", c2_blocks(cur)[0], want["remesh"]["(2, 2)"][rank])
+    held = c2_blocks(new)
+    out["remesh (2,)"] = {"equal": (
+        state_digest(held[0]) == want["remesh"]["(2,)"][rank]
+        if rank < 2 else held == [])}
+    out["devices"] = [str(d) for d in square.devices]
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def check_c2_ranks(label: str, backend: str, want: dict, smi: str,
+                   stats) -> None:
+    """Spawn four ranks over ``backend`` running :func:`rank_c2`; check
+    and print what each saved."""
+    import tempfile
+    from repro_torch.dist import process
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        process.spawn(rank_c2, 4, tmp, want, backend=backend, timeout_s=300)
+        ranks = [json.loads((pathlib.Path(tmp) / f"rank{k}.json").read_text())
+                 for k in range(4)]
+    wall = time.perf_counter() - t0
+    pieces = [key for key, v in ranks[0].items()
+              if isinstance(v, dict) and "equal" in v]
+    for key in pieces:
+        per = [r[key] for r in ranks]
+        check(all(p["equal"] for p in per),
+              f"{label} {key}: ranks bit for bit phase 20c's shards "
+              f"{[p['equal'] for p in per]}")
+    for key, kernel in (("k8", "K8"), ("k7", "K7")):
+        n = [r[key]["launches"] for r in ranks]
+        check(n == [1] * 4, f"{label} {kernel}: launches {n} a rank, want 1")
+    stats["flash"]["paths"][
+        f"phase 20d ops.flash_attention on a (2, 2) ProcessMesh, 4 "
+        f"{backend} ranks"] = 4
+    stats["conv1d"]["paths"][
+        f"phase 20d conv_halo_exchange (ppermute) + K7, (4,) ProcessMesh, "
+        f"4 {backend} ranks"] = 4
+    steps = [r["pipe us a step"] for r in ranks]
+    print(f"[{label}] four ranks over {backend} on {ranks[0]['devices']}: "
+          f"every rank's {', '.join(pieces)} bit for bit phase 20c's for "
+          f"its shard (digests); K8 1 launch a rank (4 in all), K7 1 a rank "
+          f"(4 in all); ranks 2-3 hold no block after the remesh onto (2,)")
+    print(f"[{label}] pipeline host us a step a rank, forward "
+          f"{[round(s['forward'], 1) for s in steps]}, backward "
+          f"{[round(s['backward'], 1) for s in steps]} "
+          f"({C2_PIPE['micro'] + C2_PIPE['stages'] - 1} steps, the second "
+          f"call; the first call's forward and backward "
+          f"{[round(s['first call s'], 3) for s in steps]} s); spawn and "
+          f"all pieces {wall:.1f}s; on {smi}")
+
+
+def phase_c2_ranks(smi: str, stats, want: dict) -> None:
+    """Phase 20d: the sharded LM pieces one rank a shard."""
+    print("== phase 20d: the sharded LM pieces one rank a shard, four gloo "
+          "ranks sharing the card ==")
+    check_c2_ranks("20d gloo", "gloo", want, smi, stats)
+    cards = torch.cuda.device_count()
+    if cards < 4:
+        print(f"== phase 20d NCCL: needs 4 cards (one NCCL rank a card for "
+              f"the 4-shard meshes; NCCL refuses ranks that share a card); "
+              f"{cards} present: not run ==")
+        return
+    check_c2_ranks("20d nccl", "nccl", want, smi, stats)
 
 
 def main() -> None:
@@ -3848,7 +4157,9 @@ def phases(smi: str, peaks, dry) -> None:
     run("phase 20a dry run", phase_dryrun, dry, smi)
     run("phase 20b roofline cells", phase_roofline, smi, peaks, stats,
         free=True)
-    run("phase 20c sharded", phase_c2, smi, stats, free=True)
+    c2: dict = {}
+    run("phase 20c sharded", phase_c2, smi, stats, c2, free=True)
+    run("phase 20d sharded ranks", phase_c2_ranks, smi, stats, c2)
     print(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():

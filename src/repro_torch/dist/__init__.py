@@ -7,12 +7,13 @@ the pipeline schedule and the mesh-aware stencil decomposition.
 * :mod:`repro_torch.dist.process` — :class:`ProcessMesh`: one process a
   shard over a ``torch.distributed`` group (NCCL between cards, gloo on
   the CPU or on a shared card), the stencil's halos as point-to-point
-  messages.
+  messages, and the reference's collectives along a mesh axis on this
+  rank's tensor (``ppermute``, ``all_gather``, ``psum``).
 * :mod:`repro_torch.dist.sharding` — logical-axis -> mesh-axis rule
   tables, the tree/state/batch spec builders the launchers use, and the
-  in-process layouts (``lay_out``, ``shard_call``).
+  layouts on either mesh (``lay_out``, ``Sharded``, ``shard_call``).
 * :mod:`repro_torch.dist.pipeline` — microbatched pipeline-parallel
-  schedule.
+  schedule, in one process or one rank a stage.
 * :mod:`repro_torch.dist.stencil` — depth-``t`` halo exchange running any
   :class:`~repro_torch.core.stencil.StencilSpec` per shard (the paper's
   §VII multi-card decomposition; entry point
@@ -23,7 +24,12 @@ The reference's ``repro.dist._compat`` has no counterpart: it only moves
 """
 from repro_torch.dist import pipeline, sharding  # noqa: F401
 from repro_torch.dist.mesh import ShardMesh  # noqa: F401
-from repro_torch.dist.process import ProcessMesh  # noqa: F401
+from repro_torch.dist.process import (  # noqa: F401
+    ProcessMesh,
+    all_gather,
+    ppermute,
+    psum,
+)
 from repro_torch.dist.sharding import (  # noqa: F401
     ACT_RULES,
     DEFAULT_RULES,

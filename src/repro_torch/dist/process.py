@@ -23,9 +23,20 @@ point-to-point messages:
 * at the end every rank all-gathers the shards into the full grid,
   ``engine.run``'s return contract.
 
+The sharded LM pieces (``dist.sharding``, ``dist.pipeline``,
+``core.ssm_sp``, ``train.compression``, ``train.fault``) move their data
+with the reference's collectives along a mesh axis, here on this rank's
+tensor: :func:`ppermute` (one ``batch_isend_irecv``), :func:`all_gather`
+and :func:`psum` (an all-gather, then a sum in axis order, so that it is
+bit for bit the in-process pieces' sum in replica order; an
+``all_reduce`` sums in its backend's own order). Each runs over the
+subgroup of this rank's line along the axis, which the mesh builds at
+construction.
+
 The caller names the backend (``init_process_group``); nothing switches by
 itself. NCCL takes one rank a card: ranks that share a card raise and are
-told to use gloo.
+told to use gloo. A process-mesh call with no process group raises; a
+collective that fails raises in its rank.
 """
 from __future__ import annotations
 
@@ -89,54 +100,92 @@ def check_backend(backend: str, device: torch.device, local_ranks: int,
                          f"start one rank a card")
 
 
+def axis_lines(shape, axis_names) -> list[tuple[str, tuple[int, ...]]]:
+    """Every line of shards along every axis of a mesh of ``shape``, in the
+    order a :class:`ProcessMesh` creates their subgroups: axis by axis,
+    and along one axis the lines by their first shard's row-major index;
+    each line the shards' indices in axis order."""
+    sizes = dict(zip(axis_names, shape))
+    lines = []
+    for axis in axis_names:
+        for k in range(math.prod(shape)):
+            coords = dict(zip(axis_names, rank_coords(shape, k)))
+            if coords[axis] == 0:
+                lines.append((axis, tuple(
+                    flat_index(sizes, axis_names, {**coords, axis: i})
+                    for i in range(sizes[axis]))))
+    return lines
+
+
 class ProcessMesh:
     """A named grid of ranks of a ``torch.distributed`` process group, one
     shard a rank.
 
-    ``shape`` gives the ranks along each of ``axis_names``; the world size
-    of ``group`` (default: the default group, which must be initialized)
-    must be ``prod(shape)``. Rank ``k`` holds the shard at
-    :func:`rank_coords` ``(shape, k)``. This rank's device is
-    :func:`rank_device` (its card), or ``device`` when the caller names
-    one (``"cpu"`` for the plain versions). At construction every rank
-    learns every rank's device (one ``all_gather_object``), so
-    ``.devices`` and ``.device(**coords)`` answer as a
-    :class:`~repro_torch.dist.mesh.ShardMesh`'s do, and the backend is
-    checked (:func:`check_backend`) before any message moves.
+    ``shape`` gives the ranks along each of ``axis_names``. ``ranks`` lists
+    the default group's ranks the mesh spans, increasing (default: all of
+    them); the shard at row-major index ``k`` (:func:`rank_coords`) is on
+    ``ranks[k]``. Every rank of the default group constructs the mesh,
+    members or not, since it creates process groups: one over ``ranks``
+    (unless they are the whole world) and one for every line of ranks
+    along every axis (:func:`axis_lines`), in the same order on every
+    rank. A rank outside ``ranks`` gets ``rank`` None and holds no shard
+    (an elastic scale-down's dropped ranks).
 
-    Its entry point is ``engine.run_distributed(u, spec, mesh=...)``,
-    called by every rank with the same arguments.
+    A member's device is :func:`rank_device` (its card), or ``device``
+    when the caller names one (``"cpu"`` for the plain versions). At
+    construction every member learns every member's device (one
+    ``all_gather_object``), so ``.devices`` and ``.device(**coords)``
+    answer as a :class:`~repro_torch.dist.mesh.ShardMesh`'s do, and the
+    backend is checked (:func:`check_backend`) before any message moves.
+
+    Its entry points are ``engine.run_distributed(u, spec, mesh=...)`` and
+    the sharded LM pieces, called by every rank with the same arguments.
     """
 
-    def __init__(self, shape, axis_names, group=None, device=None):
+    def __init__(self, shape, axis_names, ranks=None, device=None):
         if not (dist.is_available() and dist.is_initialized()):
             raise RuntimeError("ProcessMesh needs an initialized process "
                                "group: call torch.distributed."
                                "init_process_group first")
         shape, axis_names = check_mesh(shape, axis_names)
-        world = dist.get_world_size(group)
-        if math.prod(shape) != world:
+        world = dist.get_world_size()
+        every = tuple(range(world))
+        ranks = every if ranks is None else tuple(int(r) for r in ranks)
+        if math.prod(shape) != len(ranks):
             raise ValueError(f"mesh {shape} has {math.prod(shape)} shards; "
-                             f"the process group has {world} ranks")
-        self.group = group
-        self.backend = str(dist.get_backend(group))
-        self.rank = dist.get_rank(group)
+                             f"the process group has {len(ranks)} ranks")
+        if list(ranks) != sorted(set(ranks)) or not set(ranks) <= set(every):
+            raise ValueError(f"a mesh spans increasing ranks of the "
+                             f"{world}-rank group; got {ranks}")
+        self.ranks = ranks
+        self.group = None if ranks == every else dist.new_group(list(ranks))
+        self.backend = str(dist.get_backend())
+        me = dist.get_rank()
+        self.rank = ranks.index(me) if me in ranks else None
         self.shape = dict(zip(axis_names, shape))
         self.axis_names = axis_names
+        self.lines = {}
+        for axis, line in axis_lines(shape, axis_names):
+            group = dist.new_group([ranks[k] for k in line])
+            if self.rank in line:
+                self.lines[axis] = group
+        if self.rank is None:
+            self.coords, self.device_here, self.devices = None, None, ()
+            return
         self.coords = dict(zip(axis_names, rank_coords(shape, self.rank)))
         here = (rank_device() if device is None
                 else require_device(device))
         check_backend(self.backend, here, int(os.environ.get(
             "LOCAL_WORLD_SIZE", world)), torch.cuda.device_count())
         self.device_here = here
-        names = [None] * world
+        names = [None] * len(ranks)
         with _current(here):
-            dist.all_gather_object(names, str(here), group=group)
+            dist.all_gather_object(names, str(here), group=self.group)
         self.devices = tuple(torch.device(n) for n in names)
 
     def rank_of(self, **coords: int) -> int:
-        """The group rank holding the shard at ``coords`` (an axis left
-        out is index 0)."""
+        """The mesh rank (row-major index) of the shard at ``coords`` (an
+        axis left out is index 0)."""
         return flat_index(self.shape, self.axis_names, coords)
 
     def device(self, **coords: int) -> torch.device:
@@ -144,10 +193,31 @@ class ProcessMesh:
         return self.devices[self.rank_of(**coords)]
 
     def global_rank(self, rank: int) -> int:
-        """The default group's rank of this group's ``rank`` (what
+        """The default group's rank of mesh rank ``rank`` (what
         point-to-point ops address)."""
-        return rank if self.group is None else dist.get_global_rank(
-            self.group, rank)
+        return self.ranks[rank]
+
+    def line(self, axis: str) -> tuple[int, ...]:
+        """The default group's ranks of this rank's line along ``axis``, in
+        axis order."""
+        return tuple(self.global_rank(self.rank_of(**{**self.coords, axis: i}))
+                     for i in range(self.shape[axis]))
+
+    def check_group(self) -> None:
+        """Raise unless the process group is up: every call on the mesh
+        needs it, and none falls back to one process."""
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError("a ProcessMesh call needs an initialized "
+                               "process group: call torch.distributed."
+                               "init_process_group first")
+
+    def require_member(self) -> None:
+        """Raise unless the process group is up and this rank holds a
+        shard of the mesh: a collective on the mesh needs both."""
+        self.check_group()
+        if self.rank is None:
+            raise ValueError(f"rank {dist.get_rank()} holds no shard of the "
+                             f"mesh over ranks {self.ranks}")
 
 
 def _current(device: torch.device):
@@ -166,6 +236,86 @@ def _wire(mesh: ProcessMesh, like: torch.Tensor, shape) -> torch.Tensor:
         return torch.empty(shape, dtype=like.dtype, device=like.device)
     return torch.empty(shape, dtype=like.dtype, device="cpu",
                        pin_memory=like.is_cuda)
+
+
+def _staged(mesh: ProcessMesh, t: torch.Tensor) -> bool:
+    """Whether ``t`` moves through host buffers: gloo carries CPU tensors
+    only, so a card's tensor is staged (:func:`_wire`)."""
+    return mesh.backend != "nccl" and t.is_cuda
+
+
+def all_gather(t: torch.Tensor, mesh: ProcessMesh,
+               axis: str | None = None) -> list[torch.Tensor]:
+    """Every rank's ``t`` along ``axis`` of ``mesh`` (every rank of the
+    mesh when None), in axis order (row-major over the mesh), on ``t``'s
+    device: the reference's ``jax.lax.all_gather``, unstacked. Every rank
+    of the line calls it, each with a tensor of one shape and dtype."""
+    mesh.require_member()
+    group, n = ((mesh.group, len(mesh.ranks)) if axis is None
+                else (mesh.lines[axis], mesh.shape[axis]))
+    t = t.contiguous()
+    with _current(t.device):
+        if not _staged(mesh, t):
+            parts = [torch.empty_like(t) for _ in range(n)]
+            dist.all_gather(parts, t, group=group)
+            return parts
+        mine = _wire(mesh, t, t.shape)
+        mine.copy_(t)
+        parts = [_wire(mesh, t, t.shape) for _ in range(n)]
+        dist.all_gather(parts, mine, group=group)
+        return [p.to(t.device) for p in parts]
+
+
+def psum(t: torch.Tensor, mesh: ProcessMesh,
+         axis: str | None = None) -> torch.Tensor:
+    """The sum of every rank's ``t`` along ``axis``, on every rank of the
+    line: the reference's ``jax.lax.psum``. It adds in axis order,
+    ``(t0 + t1) + t2 ...`` after an :func:`all_gather`, which is bit for
+    bit the in-process pieces' sum in replica order; an ``all_reduce``
+    would sum in its backend's own order."""
+    parts = all_gather(t, mesh, axis)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def ppermute(t: torch.Tensor, mesh: ProcessMesh, axis: str,
+             perm) -> torch.Tensor:
+    """This rank's share of the reference's ``jax.lax.ppermute`` along
+    ``axis``: ``perm`` lists ``(src, dst)`` axis indices, each at most once
+    on either side, and the rank at ``src`` sends ``t`` to the rank at
+    ``dst`` of its line; the sends and receives go in one
+    ``batch_isend_irecv``. Returns what arrived, or zeros where no pair
+    sends to this rank. Every rank of the line calls it with the same
+    ``perm`` and a tensor of one shape and dtype."""
+    mesh.require_member()
+    n = mesh.shape[axis]
+    srcs, dsts = [p[0] for p in perm], [p[1] for p in perm]
+    if (len(set(srcs)) < len(srcs) or len(set(dsts)) < len(dsts)
+            or not all(0 <= i < n for i in srcs + dsts)):
+        raise ValueError(f"ppermute over {n} ranks of {axis!r} takes each "
+                         f"index at most once a side; got {list(perm)}")
+    i, line = mesh.coords[axis], mesh.line(axis)
+    to = [line[d] for s, d in perm if s == i]
+    frm = [line[s] for s, d in perm if d == i]
+    out = torch.zeros(t.shape, dtype=t.dtype, device=t.device)
+    if not (to or frm):
+        return out
+    staged = _staged(mesh, t)
+    with _current(t.device):
+        if staged:
+            sbuf, rbuf = (_wire(mesh, t, t.shape) for _ in range(2))
+            sbuf.copy_(t)
+        else:
+            sbuf, rbuf = t.contiguous(), out
+        ops = ([dist.P2POp(dist.isend, sbuf, p, mesh.group) for p in to]
+               + [dist.P2POp(dist.irecv, rbuf, p, mesh.group) for p in frm])
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if staged and frm:
+            out.copy_(rbuf)
+    return out
 
 
 class _RankHalos:
@@ -284,12 +434,7 @@ class RankLayout:
         """All-gather every rank's shard and assign each into its block of
         ``out`` (on every rank); return ``out``."""
         mine, = shards
-        mine = mine.contiguous()
-        if self.mesh.backend != "nccl":
-            mine = mine.cpu()
-        parts = [torch.empty_like(mine) for _ in self.mesh.devices]
-        with _current(self.mesh.device_here):
-            dist.all_gather(parts, mine, group=self.mesh.group)
+        parts = all_gather(mine, self.mesh)
         for ix in range(self.px):
             for iy in range(self.py):
                 rs, cs = self._block(ix, iy)

@@ -35,6 +35,8 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from repro_torch.dist.process import ProcessMesh, all_gather
+
 Axes = Sequence[Optional[str]]
 Rules = tuple[tuple[str, Any], ...]
 Spec = tuple
@@ -243,7 +245,7 @@ def state_shardings(state, specs, mesh, rules: Rules | None = None):
 
 
 # ---------------------------------------------------------------------------
-# in-process layouts: the blocks of a spec on a ShardMesh
+# layouts: the blocks of a spec on a ShardMesh or a ProcessMesh
 # ---------------------------------------------------------------------------
 
 def _coords(mesh, flat: int) -> dict:
@@ -275,31 +277,49 @@ def block_slices(shape: Sequence[int], spec: Spec, mesh,
 
 
 class Sharded:
-    """A tensor laid out on a :class:`~repro_torch.dist.mesh.ShardMesh`
-    by ``spec``: ``shards[i]`` is shard ``i``'s block (row-major over the
-    mesh's axes), on that shard's device. A dimension the spec leaves
-    unsplit is whole in every shard (a replica)."""
+    """A tensor laid out on a mesh by ``spec``.
+
+    On a :class:`~repro_torch.dist.mesh.ShardMesh`, ``shards[i]`` is shard
+    ``i``'s block (row-major over the mesh's axes), on that shard's
+    device. On a :class:`~repro_torch.dist.process.ProcessMesh`,
+    ``shards`` holds this rank's block alone (nothing on a rank outside the
+    mesh). A dimension the spec leaves unsplit is whole in every shard (a
+    replica)."""
 
     def __init__(self, spec: Spec, shape, shards, mesh):
         self.spec, self.shape = tuple(spec), tuple(shape)
         self.shards, self.mesh = tuple(shards), mesh
 
     def full(self, device=None) -> torch.Tensor:
-        """The whole tensor on ``device`` (default: shard 0's)."""
-        device = self.shards[0].device if device is None else device
-        out = torch.empty(self.shape, dtype=self.shards[0].dtype,
-                          device=device)
-        for i, shard in enumerate(self.shards):
+        """The whole tensor on ``device`` (default: the first block's). On
+        a process mesh every rank of it calls this, and the blocks are
+        all-gathered."""
+        blocks = self.shards
+        if isinstance(self.mesh, ProcessMesh):
+            self.mesh.require_member()
+            blocks = all_gather(blocks[0], self.mesh)
+        device = blocks[0].device if device is None else device
+        out = torch.empty(self.shape, dtype=blocks[0].dtype, device=device)
+        for i, block in enumerate(blocks):
             out[block_slices(self.shape, self.spec, self.mesh,
-                             _coords(self.mesh, i))].copy_(shard)
+                             _coords(self.mesh, i))].copy_(block)
         return out
 
 
+def _held(mesh) -> list:
+    """``(flat index, device)`` of each shard this process holds: every
+    shard of a ``ShardMesh``, this rank's of a ``ProcessMesh``."""
+    if isinstance(mesh, ProcessMesh):
+        mesh.check_group()
+        return [] if mesh.rank is None else [(mesh.rank, mesh.device_here)]
+    return list(enumerate(mesh.devices))
+
+
 def lay_out(x: torch.Tensor, spec: Spec, mesh) -> Sharded:
-    """``x`` laid out on ``mesh`` by ``spec``: each shard's block copied
-    to its device."""
+    """``x`` laid out on ``mesh`` by ``spec``: each block this process
+    holds copied to its device (on a process mesh, this rank's)."""
     shards = []
-    for i, dev in enumerate(mesh.devices):
+    for i, dev in _held(mesh):
         blk = x[block_slices(x.shape, spec, mesh, _coords(mesh, i))]
         shards.append(torch.empty(blk.shape, dtype=x.dtype,
                                   device=dev).copy_(blk))
@@ -310,27 +330,40 @@ def shard_call(fn, mesh, args, in_specs, out_spec):
     """``fn`` run on each shard's blocks of ``args`` on its device, and its
     results put together by ``out_spec``: the in-process ``shard_map``.
 
-    A block that several shards hold alike (the spec splits no dimension
-    over some mesh axis) runs once, on the first shard that holds it. The
-    result is on the first argument's device.
+    On a ``ShardMesh``, a block that several shards hold alike (the spec
+    splits no dimension over some mesh axis) runs once, on the first
+    shard that holds it. On a ``ProcessMesh`` every rank runs ``fn`` once,
+    on its blocks of the whole ``args`` it was given, and the results are
+    all-gathered, so every rank gets the whole result. The result is on
+    the first argument's device.
     """
-    out, done = None, set()
-    for i, dev in enumerate(mesh.devices):
-        coords = _coords(mesh, i)
-        slices = [block_slices(a.shape, s, mesh, coords)
-                  for a, s in zip(args, in_specs)]
-        key = tuple((s.start, s.stop) for sl in slices for s in sl)
-        if key in done:
-            continue
-        done.add(key)
-        blocks = [torch.empty(a[sl].shape, dtype=a.dtype,
-                              device=dev).copy_(a[sl])
-                  for a, sl in zip(args, slices)]
-        y = fn(*blocks)
-        if out is None:
-            full = list(y.shape)
-            for d, entry in enumerate(out_spec):
-                full[d] *= math.prod(mesh.shape[a] for a in spec_axes(entry))
-            out = torch.empty(full, dtype=y.dtype, device=args[0].device)
-        out[block_slices(out.shape, out_spec, mesh, coords)].copy_(y)
+    def slices(i):
+        return [block_slices(a.shape, s, mesh, _coords(mesh, i))
+                for a, s in zip(args, in_specs)]
+
+    def run(sls, dev):
+        return fn(*[torch.empty(a[sl].shape, dtype=a.dtype,
+                                device=dev).copy_(a[sl])
+                    for a, sl in zip(args, sls)])
+
+    if isinstance(mesh, ProcessMesh):
+        mesh.require_member()
+        y = run(slices(mesh.rank), mesh.device_here)
+        results = list(enumerate(all_gather(y, mesh)))
+    else:
+        results, done = [], set()
+        for i, dev in enumerate(mesh.devices):
+            sls = slices(i)
+            key = tuple((s.start, s.stop) for sl in sls for s in sl)
+            if key not in done:
+                done.add(key)
+                results.append((i, run(sls, dev)))
+    y = results[0][1]
+    full = list(y.shape)
+    for d, entry in enumerate(out_spec):
+        full[d] *= math.prod(mesh.shape[a] for a in spec_axes(entry))
+    out = torch.empty(full, dtype=y.dtype, device=args[0].device)
+    for i, y in results:
+        out[block_slices(out.shape, out_spec, mesh,
+                         _coords(mesh, i))].copy_(y)
     return out

@@ -157,6 +157,13 @@ def remesh_state(state: Any, new_mesh, specs, rules=None) -> Any:
     that are not tensors stay as they are. The reference moves each leaf
     through the host (``device_get``, ``device_put``); the port copies
     device to device.
+
+    Between process meshes (:class:`~repro_torch.dist.process.
+    ProcessMesh`), every rank of the old mesh calls it: each leaf is
+    all-gathered on the old mesh and each rank keeps its block of the new
+    one. The new mesh may span fewer ranks
+    (an elastic scale-down onto a subgroup); a rank outside it holds no
+    blocks.
     """
     from repro_torch.dist.sharding import (Sharded, _map, lay_out,
                                            state_shardings)

@@ -1256,6 +1256,47 @@ def test_compressed_psum_card_equals_cpu(cuda):
                                e_h[r].residual["w"])
 
 
+def test_int8_scale_and_mean_divide_as_on_the_cpu(cuda):
+    """``quantize_int8``'s scale is ``max|g| / 127`` rounded once, as on
+    the CPU: at max |g| = 7.682218 the CUDA kernel given the Python
+    number 127 multiplies by its rounded reciprocal and lands an ulp off
+    (which moved every dequantized value of the tensor). The mean over 3
+    replicas divides the same way."""
+    from repro_torch.train.compression import (EFState, compressed_psum,
+                                               quantize_int8)
+    g = torch.linspace(-1.0, 7.682218074798584, 1000)
+    q, scale = quantize_int8(g.to(cuda))
+    q_h, scale_h = quantize_int8(g)
+    assert torch.equal(scale.cpu(), scale_h) and torch.equal(q.cpu(), q_h)
+    grads = [{"w": (g * (i + 1)).to(cuda)} for i in range(3)]
+    res = [EFState({"w": torch.zeros_like(d["w"])}) for d in grads]
+    m_c, _ = compressed_psum(grads, res, "int8")
+    m_h, _ = compressed_psum([{"w": d["w"].cpu()} for d in grads],
+                             [EFState({"w": torch.zeros(1000)})] * 3, "int8")
+    assert all(torch.equal(m_c[r]["w"].cpu(), m_h[r]["w"]) for r in range(3))
+
+
+def test_collectives_staged_through_pinned_buffers(cuda, tmp_path):
+    """Two gloo ranks sharing the card: ``ppermute``, ``all_gather`` and
+    ``psum`` of CUDA tensors, staged through pinned host buffers, each
+    result back on the card and equal to what was sent (rank 0, which
+    receives nothing from the ``ppermute``, gets zeros)."""
+    import os
+    import sys
+    from repro_torch.dist import process
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import _torch_c2_ranks as R
+    process.spawn(R.card_collectives, 2, str(tmp_path), timeout_s=120)
+    res = [torch.load(tmp_path / f"rank{k}.pt") for k in range(2)]
+    sent = [torch.arange(4, dtype=torch.bfloat16) + 10 * k for k in range(2)]
+    for k, r in enumerate(res):
+        assert r["on_card"] and r["device"].startswith("cuda")
+        assert torch.equal(r["ppermute"], sent[0] if k == 1
+                           else torch.zeros(4, dtype=torch.bfloat16))
+        assert all(torch.equal(a, b) for a, b in zip(r["all_gather"], sent))
+        assert torch.equal(r["psum"], sent[0].float() + sent[1].float())
+
+
 # ------------------ kernels and meshes over two cards ------------------
 
 @pytest.fixture

@@ -59,7 +59,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.train.data", "repro_torch.train.checkpoint",
             "repro_torch.train.fault", "repro_torch.train.compression",
             "repro_torch.launch.train", "repro_torch.examples.train_lm",
-            "repro_torch.examples.fault_tolerant_training"} <= set(MODULES)
+            "repro_torch.examples.fault_tolerant_training",
+            "repro_torch.launch.sharded"} <= set(MODULES)
 
 
 def test_source_has_no_jax_or_repro_imports():
