@@ -292,14 +292,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     of each family at full width and 2 layers (zamba2: 7, one group and
     a tail layer) with finite loss and gradients; both training example
     twins; no kernel launched by any of it;
-20. the dry run and the roofline, and the sharded LM pieces: (a) the dry
-    run (``repro_torch.launch.dryrun``) of every arch x shape on the pod
-    and multipod meshes under ``gpu_sm90``, all on ``meta``, in four
-    worker processes started after phase 2 (at a lower priority, no card
-    visible to them) beside phases 3-19; no cell may be an error, 31 of
-    the 40 on each mesh must count (the rest are the reference's skips);
-    the roofline and dry-run tables and the seconds are printed. (b) Four
-    cells on the card, each also counted on ``meta`` at the same shapes:
+20. the dry run and the roofline, and the sharded LM pieces: (a) the
+    partitioned dry run (``repro_torch.launch.dryrun``): each cell's
+    program on DTensors over the production mesh (a fake process group
+    of 256 or 512 ranks, device type ``cuda``), counted on ``meta`` under
+    ``gpu_sm90``, in four worker processes started after phase 2 (at a
+    lower priority, no card visible to them) beside phases 3-19, on the
+    subset ``DRYRUN_CELLS`` (the 80 cells take longer than the phase
+    waits; the CLI counts all of them): qwen2.5-3b's prefill_32k,
+    decode_32k and train_4k on pod, qwen3-moe-30b-a3b's train_4k on
+    multipod (the cross-pod term), and cells of every other family.
+    Every worker must exit 0 and no record may be an error (errors are
+    counted by family and printed with DTensor's message first). Each
+    counted cell prints its collective bytes by
+    op and ``collective_s`` beside ``compute_s`` and ``memory_s``, then
+    the roofline and dry-run tables and the seconds. (b) Four
+    cells on the card, each also counted (unpartitioned, one card) on
+    ``meta`` at the same shapes:
     qwen2.5-3b ``prefill_32k`` at 2 x 32768 on ``attn_impl="flash"`` (K8
     once a layer, 36, as the counter counts; the jnp route's count beside
     it), ``decode_32k`` with 8 sequences, one token against a filled
@@ -332,7 +341,23 @@ Phases (any failure exits non-zero; nothing is caught and carried on):
     onto (2,) over ranks 0-1, each rank's result bit for bit (c)'s for
     its shard (``state_digest``); the pipeline's host us a step a rank.
     With 4 cards or more the same runs over NCCL, one rank a card;
-    otherwise it prints that it did not run;
+    otherwise it prints that it did not run. (e) The partitioned LM
+    program (``repro_torch.launch.partition``) on four gloo ranks
+    sharing the card: qwen2.5-3b at full width, 4 layers, f32, prefill
+    of 2 x 2048 tokens with ``attn_impl="flash"`` on a (2, 2) data x
+    model ``DeviceMesh`` over the ranks (device type ``cuda``), K8
+    through ``local_map`` (4 launches a rank); rank 0's logits within
+    2e-5 of max |y| of the single-card forward of the same layers and
+    inputs, and each rank's ``CommDebugMode`` counts and the counter's
+    bytes by op equal to the fake-group count of the same program on
+    ``meta``. Four gloo ranks first try each collective that count holds
+    on CUDA tensors, in the functional form DTensor issues, one spawn an
+    op; if gloo refuses one (an error, or a rank ended by a signal:
+    PyTorch 2.11's gloo ends a rank with SIGSEGV in the functional
+    all-gather's wait on CUDA tensors), the phase prints the refusal and
+    the op and runs the program over a fake group on CUDA tensors in
+    this process instead (K8's launches and the counts checked, the
+    output not: the real check waits for NCCL on 4 cards);
 21. one JSON line listing the kernels, then the card's name and power
     limit, then the result line. Each phase's seconds are printed as it
     ends, and all of them before the JSON line.
@@ -3453,31 +3478,42 @@ def phase_train(smi: str, stats) -> None:
 # and runs beside phases 3-19; the archs are dealt to the workers by the
 # seconds their cells took to count on a CPU (train cells dominate).
 DRYRUN_DIR = ROOT / dryrun.OUTDIR
+# The partitioned count of a full-width train cell takes 100-130 s on a
+# CPU (qwen2.5-3b on pod, qwen3-moe-30b-a3b on multipod): the 80 cells
+# take longer than phase 20a waits, so the workers count a subset, each
+# worker's cells "arch/shape/mesh" in turn.
 DRYRUN_WORKERS = [
-    ("qwen3-moe-235b-a22b", "internvl2-2b"),
-    ("zamba2-7b", "chatglm3-6b", "deepseek-7b"),
-    ("minicpm3-4b", "qwen3-moe-30b-a3b"),
-    ("mamba2-2.7b", "hubert-xlarge", "qwen2.5-3b"),
+    ("qwen2.5-3b/train_4k/pod", "hubert-xlarge/train_4k/pod"),
+    ("qwen3-moe-30b-a3b/train_4k/multipod", "mamba2-2.7b/train_4k/pod"),
+    ("qwen2.5-3b/prefill_32k/pod", "qwen2.5-3b/decode_32k/pod",
+     "internvl2-2b/prefill_32k/pod", "deepseek-7b/decode_32k/pod",
+     "chatglm3-6b/decode_32k/pod", "minicpm3-4b/train_4k/pod"),
+    ("mamba2-2.7b/long_500k/pod", "qwen3-moe-30b-a3b/decode_32k/pod",
+     "minicpm3-4b/prefill_32k/pod", "zamba2-7b/prefill_32k/pod",
+     "hubert-xlarge/prefill_32k/pod",
+     "qwen3-moe-30b-a3b/decode_32k/multipod"),
 ]
-DRYRUN_MESHES = ("pod", "multipod")
+DRYRUN_CELLS = [c for cells in DRYRUN_WORKERS for c in cells]
 # The card's published rates, ``gpu_sm90``'s constants (H100 SXM data
 # sheet: dense bf16 tensor cores, HBM3), not measurements.
 HW = get_device("gpu_sm90")
 
 
 def start_dryrun() -> tuple[float, list]:
-    """Start the dry run's workers: every arch x shape on both production
-    meshes under gpu_sm90, on meta, each record written anew; (start
+    """Start the dry run's workers: the cells of ``DRYRUN_WORKERS`` under
+    gpu_sm90, partitioned on meta, each record written anew; (start
     time, the processes)."""
+    import shutil
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
     DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for i, archs in enumerate(DRYRUN_WORKERS):
+    for i, cells in enumerate(DRYRUN_WORKERS):
         log = open(DRYRUN_DIR / f"worker{i}.log", "w")
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                "--device-model", "gpu_sm90", "--outdir", str(DRYRUN_DIR),
                "--force"]
-        for arch in archs:
-            cmd += ["--arch", arch]
+        for cell in cells:
+            cmd += ["--cell", cell]
         procs.append((subprocess.Popen(
             cmd, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src"),
@@ -3496,21 +3532,48 @@ def phase_dryrun(dry, smi: str) -> None:
               f"{pathlib.Path(log.name).read_text()[-2000:]}")
     done = time.perf_counter()
     recs = dry_report.load(str(DRYRUN_DIR))
-    print(f"== phase 20a: the dry run, {len(recs)} cells (10 archs x 4 "
-          f"shapes x {DRYRUN_MESHES}), all on meta, priced by gpu_sm90's "
-          f"published 989 TFLOP/s (bf16 dense) and 3.35 TB/s (HBM3); "
-          f"{len(procs)} workers beside phases 3-19: {done - t0:.1f}s from "
-          f"their start, {done - waited:.1f}s waited here; counting "
-          f"{sum(r.get('count_s', 0) for r in recs):.1f}s in all ==")
+    got = sorted(f"{r['arch']}/{r['shape']}/{r['mesh']}" for r in recs)
+    check(got == sorted(DRYRUN_CELLS), f"dry-run records {got} != the "
+          f"cells asked for {sorted(DRYRUN_CELLS)}")
+    family = {r["arch"]: configs.get_config(r["arch"]).family for r in recs}
     errors = [r for r in recs if r["status"] == "error"]
-    check(not errors, "dry-run errors: " + str(
-        [(r["arch"], r["shape"], r["mesh"], r["error"]) for r in errors]))
-    check(len(recs) == 10 * 4 * len(DRYRUN_MESHES)
-          and sum(r["status"] == "ok" for r in recs)
-          == 31 * len(DRYRUN_MESHES),
-          f"{len(recs)} records, "
-          f"{sum(r['status'] == 'ok' for r in recs)} ok")
-    for mesh in DRYRUN_MESHES:
+    by_family: dict = {}
+    for r in errors:
+        by_family.setdefault(family[r["arch"]], []).append(
+            f"{r['arch']}/{r['shape']}/{r['mesh']}")
+    print(f"== phase 20a: the partitioned dry run, {len(recs)} cells of the "
+          f"80 ({', '.join(DRYRUN_CELLS)}), each on DTensors over the "
+          f"production mesh's fake group, counted on meta, priced by "
+          f"gpu_sm90's published 989 TFLOP/s (bf16 dense), 3.35 TB/s "
+          f"(HBM3) and 450 GB/s a direction (NVLink); {len(procs)} workers "
+          f"beside phases 3-19: {done - t0:.1f}s from their start, "
+          f"{done - waited:.1f}s waited here; counting "
+          f"{sum(r.get('count_s', 0) for r in recs):.1f}s in all; "
+          f"{len(errors)} errors, by family "
+          f"{ {k: len(v) for k, v in by_family.items()} } ==")
+    for r in errors:
+        print(f"[error] {r['arch']} {r['shape']} {r['mesh']} "
+              f"({family[r['arch']]}): {r['error'][:300]}")
+    check(not errors, f"dry-run errors: {by_family}")
+    for r in recs:
+        if r["status"] != "ok":
+            continue
+        rl, cost = r["roofline"], r["cost"]
+        check(rl["collective_s"] is not None and rl["coll_bytes"] > 0,
+              f"{r['arch']} {r['shape']}: no collective term {rl}")
+        print(f"[{r['arch']} {r['shape']} {r['mesh']}] per device: "
+              f"compute_s {rl['compute_s']:.6e} memory_s "
+              f"{rl['memory_s']:.6e} collective_s {rl['collective_s']:.6e} "
+              f"({rl['dominant']}); collective bytes by op "
+              f"{ {k: int(v) for k, v in cost['collective_by_op'].items()} }"
+              f" ({cost['collective_count']} ops, cross-pod "
+              f"{rl['cross_pod_bytes']}); mesh device type "
+              f"{r['mesh_device_type']}; counted in {r['count_s']}s")
+    moe = next(r for r in recs if r["arch"] == "qwen3-moe-30b-a3b"
+               and r["mesh"] == "multipod")
+    check(moe["roofline"]["cross_pod_bytes"] > 0,
+          f"qwen3-moe-30b-a3b train_4k on multipod: no cross-pod bytes")
+    for mesh in sorted({r["mesh"] for r in recs}):
         print(f"-- roofline, {mesh} mesh --")
         print(dry_report.roofline_table(recs, mesh))
     print(dry_report.dryrun_table(recs))
@@ -3532,14 +3595,13 @@ def measured_cell(arch: str, shape: str, cell, reduced: list, smi: str,
     and print its time, memory and roofline share; returns its launches
     and the counter's cost."""
     card_mesh = make_mesh((1, 1), ("data", "model"))
-    meta_mesh = make_mesh((1, 1), ("data", "model"), ["meta"])
     cfg0 = configs.get_config(arch)
     cfg, knobs = tuning.tuned(cfg0, shape, card_mesh)
     cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     if cell.kind == "train":
         reduced = reduced + [f"accum_steps {knobs.accum_steps} -> 1"]
         knobs = dataclasses.replace(knobs, accum_steps=1)
-    cost, mem = dryrun.count_cell(cfg, cell, meta_mesh, knobs)
+    cost, mem = dryrun.count_cell(cfg, cell, None, knobs)
     g = torch.Generator("cuda").manual_seed(0)
     model = build_model(cfg, device="cuda", generator=g)
     batch = dryrun.cell_inputs(cfg, cell, "cuda", g)
@@ -3566,7 +3628,8 @@ def measured_cell(arch: str, shape: str, cell, reduced: list, smi: str,
           f"{launches} != the counter's {cost.kernels}")
     ms = wall_ms(run, reps=3)
     peak = torch.cuda.max_memory_allocated()
-    rl = roofline.analyze(cost, 1, dryrun.model_flops(cfg0, cell), hw=HW)
+    rl = roofline.analyze(cost, 1, dryrun.model_flops(cfg0, cell), hw=HW,
+                          partitioned=False)
     share = rl.bound_s * 1e3 / ms
     print(f"[{arch} {shape}] {cell.global_batch} x {cell.seq_len} "
           f"({cell.kind}; reduced: {reduced or 'none'}); attn_impl="
@@ -3660,7 +3723,7 @@ def phase_roofline(smi: str, peaks, stats) -> None:
     meta_mesh = make_mesh((1, 1), ("data", "model"), ["meta"])
     cfg_j, knobs_j = tuning.tuned(configs.get_config("qwen2.5-3b"),
                                   "prefill_32k", meta_mesh)
-    jnp_cost, _ = dryrun.count_cell(cfg_j, pre, meta_mesh, knobs_j)
+    jnp_cost, _ = dryrun.count_cell(cfg_j, pre, None, knobs_j)
     launches, flash_cost = measured_cell(
         "qwen2.5-3b", "prefill_32k", pre, ["global_batch 32 -> 2"], smi,
         rows, attn_impl="flash")
@@ -4101,6 +4164,123 @@ def phase_c2_ranks(smi: str, stats, want: dict) -> None:
     check_c2_ranks("20d nccl", "nccl", want, smi, stats)
 
 
+# Phase 20e: the partitioned LM program on four gloo ranks sharing the
+# card, as phase 20d spawns them.
+PARTITION = dict(arch="qwen2.5-3b", layers=4, batch=2, seq=2048,
+                 rtol=2e-5)
+
+
+def probe_gloo(rank: int, out_dir: str, op: str) -> None:
+    """One rank of phase 20e's probe: the collective ``op`` (a
+    ``_c10d_functional`` name the program's fake count holds) once on
+    CUDA tensors over gloo in the functional form DTensor issues; its
+    refusal's text, or None, to ``<out_dir>/probe<rank>.json``."""
+    from torch.distributed import _functional_collectives as funcol
+    torch.cuda.set_device(0)
+    x = torch.arange(8.0, device="cuda")
+    group = list(range(4))
+    calls = {
+        "all_gather_into_tensor": lambda: funcol.all_gather_tensor(
+            x, 0, group),
+        "all_reduce": lambda: funcol.all_reduce(x, "sum", group),
+        "reduce_scatter_tensor": lambda: funcol.reduce_scatter_tensor(
+            x, "sum", 0, group),
+        "all_to_all_single": lambda: funcol.all_to_all_single(
+            x, None, None, group),
+    }
+    calls["shard_dim_alltoall"] = calls["all_to_all_single"]
+    try:
+        float(calls[op]().sum())
+        out = None
+    except RuntimeError as e:
+        out = f"{type(e).__name__}: {e}"[:400]
+    with open(os.path.join(out_dir, f"probe{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def refusals(ops: list) -> dict:
+    """Each of ``ops`` probed on four gloo ranks of the card, in a spawn
+    of its own: ``{op: why}`` for each op gloo refuses, a raised error's
+    text or the signal that ended the ranks (the functional form's wait
+    on CUDA tensors can end a gloo rank with SIGSEGV, which no exception
+    reports)."""
+    import tempfile
+    from torch.multiprocessing import ProcessExitedException
+    from repro_torch.dist import process
+    out = {}
+    for op in ops:
+        with tempfile.TemporaryDirectory() as tmp:
+            try:
+                process.spawn(probe_gloo, 4, tmp, op, backend="gloo",
+                              timeout_s=60)
+            except ProcessExitedException as e:
+                out[op] = f"a rank ended: {e}"
+                continue
+            why = [json.loads((pathlib.Path(tmp) / f"probe{r}.json")
+                              .read_text()) for r in range(4)]
+        if any(why):
+            out[op] = next(w for w in why if w)
+    return out
+
+
+def phase_partition(smi: str, stats) -> None:
+    """Phase 20e: the partitioned program over four gloo ranks."""
+    import tempfile
+    from repro_torch.dist import process
+    from repro_torch.launch import partition
+    from repro_torch.launch.mesh import fake_device_mesh
+    p = PARTITION
+    prog = partition.Program(
+        partition.config(p["arch"], layers=p["layers"], full=True,
+                         attn_impl="flash"),
+        "prefill", p["batch"], p["seq"])
+    print(f"== phase 20e: the partitioned LM program on four gloo ranks "
+          f"sharing the card: {p['arch']} at full width, {p['layers']} "
+          f"layers, f32, prefill of {p['batch']} x {p['seq']} tokens, "
+          f"attn_impl=flash, on a (2, 2) data x model DeviceMesh ==")
+    t0 = time.perf_counter()
+    fake = partition.fake_collectives(prog, "cuda")
+    print(f"[20e] the fake-group count on meta: {fake['counts']}, bytes "
+          f"{fake['bytes']}")
+    refused = refusals(sorted(fake["counts"]))
+    if not refused:
+        with tempfile.TemporaryDirectory() as tmp:
+            process.spawn(partition.rank_main, 4, tmp, [prog], "cuda",
+                          backend="gloo", timeout_s=600)
+            lines = partition.check([prog], tmp, 4, "cuda", "cuda",
+                                    p["rtol"])
+            launches = [json.loads((pathlib.Path(tmp) / f"0.{r}.json")
+                                   .read_text())["launches"]
+                        for r in range(4)]
+        for line in lines:
+            print(f"[20e gloo] {line}")
+        where = "4 gloo ranks"
+    else:
+        for op, why in sorted(refused.items()):
+            print(f"[20e gloo] gloo refuses {op} on CUDA tensors: {why}")
+        print("[20e] the real check waits for NCCL on 4 cards (one rank a "
+              "card); the program runs over a fake group on CUDA tensors "
+              "in this process instead, its output not checked")
+        with fake_device_mesh(*partition.MESH, "cuda") as mesh:
+            flash.reset_launch_counts()
+            partition.run(prog, "cuda", mesh)
+            launches = [flash.LAUNCHES["flash_attention"]]
+            got = partition.collectives(prog, "cuda", mesh)
+        for key in ("counts", "bytes", "count"):
+            check(got[key] == fake[key], f"20e fake group on CUDA: {key} "
+                  f"{got[key]} != the meta count's {fake[key]}")
+        print(f"[20e fake] collectives {got['counts']} = the meta count's, "
+              f"bytes {got['bytes']} = the meta count's")
+        where = "a fake group on CUDA tensors"
+    check(launches == [p["layers"]] * len(launches),
+          f"20e: K8 launches {launches} a rank, want {p['layers']}")
+    stats["flash"]["paths"][
+        f"phase 20e partitioned prefill (local_map), {where}"] = \
+        sum(launches)
+    print(f"[20e] K8 through local_map: {launches} launches a rank; "
+          f"probes and program {time.perf_counter() - t0:.1f}s; on {smi}")
+
+
 def main() -> None:
     smi, peaks = card()
     print(f"== phase 1: card: {smi} ==")
@@ -4160,6 +4340,7 @@ def phases(smi: str, peaks, dry) -> None:
     c2: dict = {}
     run("phase 20c sharded", phase_c2, smi, stats, c2, free=True)
     run("phase 20d sharded ranks", phase_c2_ranks, smi, stats, c2)
+    run("phase 20e partitioned ranks", phase_partition, smi, stats)
     print(f"phase seconds: {json.dumps(seconds)}")
     kernels = []
     for policy, (kid, replaces) in KERNELS.items():

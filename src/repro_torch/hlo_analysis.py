@@ -22,8 +22,42 @@ storage), and fills the reference's :class:`LoopAwareCost`:
   smoke cells the port's proxy is 0.09-1.09 of the reference's CPU
   compile's (``tests/test_torch_roofline.py`` pins each cell's ratio and
   says where the two part);
-* ``collective_bytes``: 0. The program runs in one process; shards of an
-  in-process mesh move by ``copy_``, counted with the copies.
+* ``collective_bytes``: the collectives the program issues, priced per
+  device with the reference's ring factors (``_collective_bytes``) at
+  the size of the op's group: a partitioned program (DTensors on a
+  ``DeviceMesh``, ``dist.sharding``) issues ``_c10d_functional``'s
+  ``all_gather_into_tensor`` (the gathered result times ``(n-1)/n``),
+  ``reduce_scatter_tensor`` (the scattered result times ``n-1``),
+  ``all_reduce`` (twice the result times ``(n-1)/n``),
+  ``all_to_all_single`` and DTensor's ``shard_dim_alltoall`` (the result
+  times ``(n-1)/n``), and their coalesced forms; ``wait_tensor`` is no
+  traffic. ``collective_by_op`` holds them under the reference's HLO
+  names (``all-gather``, ...), ``collective_count`` counts the ops, and
+  each adds twice its result to the HBM proxy, as the reference's walk
+  does. ``cross_pod_bytes`` holds the share of each collective's bytes
+  that crosses pods (``pod_size`` ranks a pod, :func:`cross_pod_share`):
+  of a ring over the group's ranks in order, the hops that join two
+  pods over all its hops (2 of 32 for the multipod ``pod.data`` group,
+  all of a group over the ``pod`` axis alone, none inside a pod). That
+  is the traffic a schedule that reduces inside each pod first sends
+  across; a flat ring waits on its cross-pod hop for all of its bytes,
+  so ``roofline.analyze``'s DCI term is a lower bound for it. The
+  reference counts all of a group's bytes once the group is larger
+  than ``pod_size`` instead: XLA flattens a collective over several
+  mesh axes into one group, while DTensor issues one a mesh dimension
+  (at most 32 ranks on the production meshes), so that rule would find
+  no cross-pod bytes here. An unpartitioned program in
+  one process has none (shards of an in-process mesh move by ``copy_``,
+  counted with the copies).
+
+Partitioned programs: a DTensor op reaches the counter first with the
+global shapes; the counter declines it (``NotImplemented``), DTensor
+propagates the layouts and runs the local op and the collectives, and
+those reach the counter: every term is this rank's, per device, from
+the local shapes (the fake group's rank 0 on ``meta``: ``launch.mesh``).
+DTensor derives an output's global shape by running the op under a fake
+mode; those ops are not the program's and are neither counted nor
+tracked.
 
 Loops: eager dispatch is loop-aware by construction. A layer loop, an
 accumulation loop or a checkpoint's recompute dispatches every op it
@@ -71,6 +105,9 @@ import weakref
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import build
@@ -101,6 +138,50 @@ MATERIALIZING = {
 }
 _MATERIALIZING_ATEN = frozenset(n for ns in MATERIALIZING.values()
                                 for n in ns)
+
+
+#: The collectives the counter prices, by op name: (the reference's HLO
+#: name, where the group's name is among the op's arguments).
+COLLECTIVES = {
+    "all_gather_into_tensor": ("all-gather", 2),
+    "all_gather_into_tensor_coalesced": ("all-gather", 2),
+    "reduce_scatter_tensor": ("reduce-scatter", 3),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", 3),
+    "all_reduce": ("all-reduce", 2),
+    "all_reduce_coalesced": ("all-reduce", 2),
+    "all_to_all_single": ("all-to-all", 3),
+    "shard_dim_alltoall": ("all-to-all", 3),
+}
+
+
+def _group_ranks(name: str) -> tuple[int, ...]:
+    """The global ranks of the process group named ``name``."""
+    pg = dist.distributed_c10d._resolve_process_group(name)
+    return tuple(dist.get_process_group_ranks(pg))
+
+
+def cross_pod_share(ranks, pod_size: int) -> float:
+    """The share of a ring over ``ranks`` (in rank order) whose hops join
+    two pods of ``pod_size`` ranks: 0 for a group inside one pod."""
+    rs = sorted(ranks)
+    n = len(rs)
+    return sum(rs[i] // pod_size != rs[(i + 1) % n] // pod_size
+               for i in range(n)) / n
+
+
+def collective_bytes(op: str, result_bytes: float, n: int) -> float:
+    """Bytes a device moves for one collective ``op`` (the reference's
+    HLO name) whose result is ``result_bytes`` on a group of ``n``: the
+    reference's ring factors (``repro.hlo_analysis._collective_bytes``)."""
+    n = max(2, n)
+    ring = (n - 1) / n
+    if op == "all-reduce":
+        return 2.0 * result_bytes * ring
+    if op == "reduce-scatter":
+        return result_bytes * (n - 1)
+    if op in ("all-gather", "all-to-all"):
+        return result_bytes * ring
+    return float(result_bytes)  # collective-permute
 
 
 class UncountedKernelError(RuntimeError):
@@ -219,12 +300,23 @@ def _pure(func) -> bool:
                     for r in schema.returns))
 
 
+def _faking(types) -> bool:
+    """Whether an op runs on fake tensors, or under a fake mode (DTensor's
+    shape propagation)."""
+    return (any(issubclass(t, FakeTensor) for t in types)
+            or torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None)
+
+
 class CostCounter(TorchDispatchMode):
     """Counts the cost of what runs under it (``with CostCounter() as c``;
-    then ``c.cost``). See the module note."""
+    then ``c.cost``). See the module note; ``pod_size`` ranks make a pod
+    (None: no pods, no cross-pod bytes)."""
 
-    def __init__(self):
+    def __init__(self, pod_size: int | None = None):
         super().__init__()
+        self.pod_size = pod_size
+        self._groups: dict = {}  # group name -> its global ranks
         self.cost = LoopAwareCost()
         self._in_kernel = False
         self._live = 0
@@ -291,13 +383,41 @@ class CostCounter(TorchDispatchMode):
 
     # -- ops and kernels --------------------------------------------------
 
+    def _collective(self, name: str, args, outs) -> None:
+        op, at = COLLECTIVES[name]
+        group = args[at]
+        ranks = self._groups.get(group)
+        if ranks is None:
+            ranks = self._groups[group] = _group_ranks(group)
+        b = collective_bytes(op, sum(t.numel() * t.element_size()
+                                     for t in outs), len(ranks))
+        c = self.cost
+        c.collective_bytes += b
+        c.collective_by_op[op] = c.collective_by_op.get(op, 0.0) + b
+        c.collective_count += 1
+        if self.pod_size:
+            c.cross_pod_bytes += b * cross_pod_share(ranks, self.pod_size)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented  # counted as DTensor's local ops
+        if func.overloadpacket.__name__ == "wait_tensor" or _faking(types):
+            # no traffic; DTensor's shape propagation (global shapes)
+            return func(*args, **(kwargs or {}))
         out = self._run(func, args, kwargs or {})
         if self._in_kernel:
             return out
         name = func.overloadpacket.__name__
         c = self.cost
         c.ops += 1
+        if name in COLLECTIVES:
+            outs = list(_tensors(out))
+            self._collective(name, args, outs)
+            c.hbm_proxy_bytes += 2.0 * sum(t.numel() * t.element_size()
+                                           for t in outs)
+            for t in outs:
+                self._allocated(t)
+            return out
         if name in _DOT_OPS:
             c.dot_flops += _dot_flops(name, args, out)
         elif name in ("convolution", "convolution_backward"):
@@ -343,8 +463,9 @@ class CostCounter(TorchDispatchMode):
         return out
 
 
-def count(fn: Callable, *args, **kwargs) -> tuple[object, LoopAwareCost]:
+def count(fn: Callable, *args, pod_size: int | None = None,
+          **kwargs) -> tuple[object, LoopAwareCost]:
     """``(fn(*args, **kwargs), its cost)``."""
-    with CostCounter() as ctr:
+    with CostCounter(pod_size) as ctr:
         out = fn(*args, **kwargs)
     return out, ctr.cost

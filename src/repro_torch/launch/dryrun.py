@@ -1,23 +1,44 @@
 """The dry run: every (arch x shape x mesh) cell of the production meshes,
-counted on the ``meta`` device (twin of ``repro.launch.dryrun``).
+partitioned and counted on the ``meta`` device (twin of
+``repro.launch.dryrun``).
 
-The reference AOT-compiles each cell's jitted program against a mesh of
-512 forced host devices and reads XLA's memory and cost analyses. The
-port builds each cell's model on ``meta`` (shapes, no storage), runs the
-cell's program once under the cost counter (``hlo_analysis``) and prices
-it with the roofline (``roofline``), so it needs no card and no 512
-devices (``XLA_FLAGS`` has no counterpart). A cell's program:
+The reference AOT-compiles each cell's jitted program with
+``in_shardings`` from the rule tables against a mesh of 512 forced host
+devices; XLA's SPMD partitioner inserts the collectives, and the
+roofline reads each device's cost off the partitioned HLO. The port runs
+each cell's program once on DTensors over the production mesh
+(``launch.mesh.production_device_mesh``: 16 x 16 or 2 x 16 x 16
+over PyTorch's ``fake`` process group, this process rank 0 of 256 or
+512), its model built on ``meta`` (shapes, no storage) and laid out by
+the same rules (``dist.sharding.distribute_model``, the state, cache and
+batch by ``state_shardings``/``tree_shardings``/``batch_shardings``),
+the layers' ``constrain`` sites active (``use_mesh``). DTensor
+propagates the layouts op by op and issues the collectives; the cost
+counter (``hlo_analysis``) sees rank 0's local ops and collectives, so
+every term is per device as counted (``roofline.analyze``: the
+collective term priced at ``ici_bw``, the cross-pod bytes at
+``dci_bw``), and the memory is rank 0's: its arguments as laid out, its
+outputs, and the peak of its live temporaries. A cell's program:
 
 * ``train``: the train step with AdamW and ``warmup_cosine``,
   ``accum_steps`` microbatches, the optimizer included;
 * ``prefill``: ``forward(last_only=True)``;
 * ``decode``: one token against ``init_cache(global_batch, seq_len)``.
 
+The fake mesh's device type is ``cuda`` in a PyTorch built for CUDA and
+``cpu`` otherwise (``count_device_type``): DTensor re-lays a dimension
+from one split to another with an all-to-all on a ``cuda`` mesh and with
+an all-gather and a slice on a ``cpu`` one (gloo has no all-to-all), and
+a ``cuda`` mesh's shape propagation needs a CUDA build; the record says
+which (``mesh_device_type``).
+
 Each record goes to ``<outdir>/<mesh>/<arch>.<shape>.json`` (resumable:
 a cell on disk is skipped unless ``--force``) with the reference's fields
 (``status``, ``reason`` for skips, ``accum_steps``, ``memory``,
 ``roofline``); the reference's ``lower_s``/``compile_s`` become
-``count_s``, and ``cost`` holds the counter's own numbers.
+``count_s``, and ``cost`` holds the counter's own numbers, the
+collectives by op and their count among them. A cell that DTensor
+refuses is recorded as ``status: "error"`` with its message.
 
 Usage::
 
@@ -35,6 +56,7 @@ its device model defaults to the reference's ``tpu_v5e``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -48,7 +70,8 @@ from repro_torch.configs.shapes import (SHAPES, ShapeCell, cell_input_specs,
 from repro_torch.dist import sharding as shd
 from repro_torch.hlo_analysis import CostCounter
 from repro_torch.launch import tuning
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import (make_production_mesh,
+                                     production_device_mesh)
 from repro_torch.models.registry import build_model, count_active_params
 
 OUTDIR = os.path.join("experiments", "dryrun_torch")
@@ -118,50 +141,57 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
-def argument_bytes(args: dict, axes: dict, model, batch, mesh) -> dict:
-    """Bytes per device of every argument tensor, keyed by the id of its
-    storage: the state by ``state_shardings``, the parameters and cache by
-    ``tree_shardings``, the batch by ``batch_shardings``."""
-    specs = {}
-    if "state" in args:
-        specs["state"] = shd.state_shardings(args["state"], axes, mesh)
-    if "params" in args:
-        specs["params"] = shd.tree_shardings(args["params"], axes, mesh)
-    if "cache" in args:
-        specs["cache"] = shd.tree_shardings(args["cache"],
-                                            model.cache_axes(), mesh)
+def count_device_type() -> str:
+    """The fake mesh's device type: ``cuda`` in a PyTorch built for CUDA
+    (a card need not be visible), else ``cpu`` (see the module note)."""
+    return "cuda" if torch.backends.cuda.is_built() else "cpu"
+
+
+def _local_bytes(tree) -> dict:
+    """``{id(storage): bytes}`` of the local block of every tensor in
+    ``tree`` (a DTensor's on this rank)."""
     out = {}
-    trees = [(args[k], specs[k]) for k in specs]
-    trees.append((batch, shd.batch_shardings(batch, mesh)))
-    for tree, spec in trees:
-        shd._map(lambda x, s: out.__setitem__(
-            id(x.untyped_storage()),
-            shd.shard_bytes(x.shape, x.element_size(), s, mesh))
-            if isinstance(x, torch.Tensor) else None, tree, spec)
+    for t in _leaves(tree):
+        st = getattr(t, "_local_tensor", t).untyped_storage()
+        out[id(st)] = st.nbytes()
     return out
 
 
-def count_cell(cfg, cell: ShapeCell, mesh, knobs):
-    """Build ``cfg``'s model on ``meta`` and run the cell's program once
-    under the counter: ``(cost, memory per device on mesh)``."""
+def count_cell(cfg, cell: ShapeCell, mesh, knobs,
+               pod_size: int | None = None):
+    """Build ``cfg``'s model on ``meta``, lay it and the cell's inputs out
+    on the ``DeviceMesh`` ``mesh`` and run the cell's program once under
+    the counter: ``(cost, memory)``, both of this rank (per device). With
+    ``mesh=None``, one card's whole program (no collectives)."""
     model = build_model(cfg, device="meta")
     batch = cell_inputs(cfg, cell)
-    run, args, axes = cell_program(model, cell, knobs, batch)
-    per_dev = argument_bytes(args, axes, model, batch, mesh)
-    n_dev = len(mesh.devices)
-    with CostCounter() as ctr:
+    cache = None
+    if cell.kind == "decode":
+        cache = model.init_cache(cell.global_batch, cell.seq_len)
+    if mesh is not None:
+        shd.distribute_model(model, mesh)
+        batch = shd.distribute(batch, shd.batch_shardings(batch, mesh),
+                               mesh)
+        if cache is not None:
+            cache = shd.distribute(cache, shd.tree_shardings(
+                cache, model.cache_axes(), mesh), mesh)
+    run, args, _ = cell_program(model, cell, knobs, batch, cache)
+    per_dev = _local_bytes([args, batch])
+    scope = shd.use_mesh(mesh) if mesh is not None else \
+        contextlib.nullcontext()
+    with scope, CostCounter(pod_size) as ctr:
         out = run()
     fresh = alias = 0
     for t in _leaves(out):
-        key = id(t.untyped_storage())
-        if key in per_dev:
-            alias += per_dev[key]
-        elif ctr.tracked(t):
-            fresh += t.untyped_storage().nbytes()
+        st = getattr(t, "_local_tensor", t).untyped_storage()
+        if id(st) in per_dev:
+            alias += per_dev[id(st)]
+        elif ctr.tracked(getattr(t, "_local_tensor", t)):
+            fresh += st.nbytes()
     cost = ctr.cost
     mem = roofline.memory_per_device(
-        sum(per_dev.values()), fresh // n_dev + alias, alias,
-        max(0, cost.peak_bytes - fresh), n_dev)
+        sum(per_dev.values()), fresh + alias, alias,
+        max(0, cost.peak_bytes - fresh))
     return cost, mem
 
 
@@ -179,8 +209,9 @@ def model_flops(cfg0, cell: ShapeCell) -> float:
 def run_cell(arch: str, shape: str, mesh_name: str,
              device_model: str = "gpu_sm90") -> dict:
     """One cell's record on the production mesh ``mesh_name``."""
-    mesh = make_production_mesh(multi_pod=mesh_name == "multipod")
-    n_dev = len(mesh.devices)
+    multi_pod = mesh_name == "multipod"
+    shape_of = make_production_mesh(multi_pod=multi_pod)
+    n_dev = len(shape_of.devices)
     cfg0 = configs.get_config(arch)
     rec: dict = {"arch": arch, "shape": shape, "mesh": mesh_name,
                  "n_devices": n_dev, "device_model": device_model}
@@ -189,16 +220,22 @@ def run_cell(arch: str, shape: str, mesh_name: str,
         rec.update(status="skipped", reason=why)
         return rec
     cell = SHAPES[shape]
-    cfg, knobs = tuning.tuned(cfg0, shape, mesh)
+    cfg, knobs = tuning.tuned(cfg0, shape, shape_of)
+    pod_size = 256 if multi_pod else None
     t0 = time.time()
-    cost, mem = count_cell(cfg, cell, mesh, knobs)
+    with production_device_mesh(multi_pod=multi_pod,
+                                device_type=count_device_type()) as mesh:
+        cost, mem = count_cell(cfg, cell, mesh, knobs, pod_size)
     rl = roofline.analyze(cost, n_dev, model_flops(cfg0, cell),
-                          hw=device_model)
+                          pod_size=pod_size, hw=device_model)
     rec.update(status="ok", count_s=round(time.time() - t0, 1),
+               mesh_device_type=count_device_type(),
                accum_steps=knobs.accum_steps, memory=mem,
                roofline=rl.as_dict(),
                cost={"ops": cost.ops, "kernels": cost.kernels,
-                     "peak_bytes": cost.peak_bytes})
+                     "peak_bytes": cost.peak_bytes,
+                     "collective_by_op": cost.collective_by_op,
+                     "collective_count": cost.collective_count})
     return rec
 
 
@@ -276,6 +313,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where --backend sim runs (model cells run on "
                          "meta)")
+    ap.add_argument("--cell", action="append", default=None,
+                    metavar="ARCH/SHAPE/MESH",
+                    help="one cell (may repeat), in place of --arch, "
+                         "--shape and --mesh")
     ap.add_argument("--outdir", default=OUTDIR)
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
@@ -288,39 +329,42 @@ def main(argv=None) -> int:
     archs = args.arch or sorted(configs.ARCHS)
     shapes = [args.shape] if args.shape else list(SHAPES)
     meshes = [args.mesh] if args.mesh else ["pod", "multipod"]
+    cells = [(m, a, s) for m in meshes for a in archs for s in shapes]
+    if args.cell:
+        cells = [(m, a, s) for a, s, m in
+                 (c.split("/") for c in args.cell)]
 
     failures = 0
-    for mesh_name in meshes:
-        for arch in archs:
-            for shape in shapes:
-                d = os.path.join(args.outdir, mesh_name)
-                os.makedirs(d, exist_ok=True)
-                path = os.path.join(d, f"{arch}.{shape}.json")
-                if os.path.exists(path) and not args.force:
-                    print(f"[cached ] {mesh_name:8s} {arch:22s} {shape}")
-                    continue
-                try:
-                    rec = run_cell(arch, shape, mesh_name,
-                                   device_model=args.device_model)
-                except Exception as e:  # a cell's failure is recorded
-                    failures += 1
-                    rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
-                           "status": "error", "error": repr(e),
-                           "traceback": traceback.format_exc()}
-                with open(path, "w") as f:
-                    json.dump(rec, f, indent=1)
-                status = rec["status"]
-                extra = ""
-                if status == "ok":
-                    r = rec["roofline"]
-                    mb = rec["memory"]["total_nonalias"] / 2**30
-                    extra = (f"dom={r['dominant']:10s} "
-                             f"bound={r['bound_s'] * 1e3:8.2f}ms "
-                             f"mem={mb:6.2f}GiB count={rec['count_s']}s")
-                elif status == "error":
-                    extra = rec["error"][:120]
-                print(f"[{status:7s}] {mesh_name:8s} {arch:22s} "
-                      f"{shape:12s} {extra}", flush=True)
+    for mesh_name, arch, shape in cells:
+        d = os.path.join(args.outdir, mesh_name)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"{arch}.{shape}.json")
+        if os.path.exists(path) and not args.force:
+            print(f"[cached ] {mesh_name:8s} {arch:22s} {shape}")
+            continue
+        try:
+            rec = run_cell(arch, shape, mesh_name,
+                           device_model=args.device_model)
+        except Exception as e:  # a cell's failure is recorded
+            failures += 1
+            rec = {"arch": arch, "shape": shape, "mesh": mesh_name,
+                   "status": "error", "error": repr(e),
+                   "traceback": traceback.format_exc()}
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+        status = rec["status"]
+        extra = ""
+        if status == "ok":
+            r = rec["roofline"]
+            mb = rec["memory"]["total_nonalias"] / 2**30
+            extra = (f"dom={r['dominant']:10s} "
+                     f"bound={r['bound_s'] * 1e3:8.2f}ms "
+                     f"coll={r['collective_s'] * 1e3:8.2f}ms "
+                     f"mem={mb:6.2f}GiB count={rec['count_s']}s")
+        elif status == "error":
+            extra = rec["error"][:120]
+        print(f"[{status:7s}] {mesh_name:8s} {arch:22s} "
+              f"{shape:12s} {extra}", flush=True)
     print(f"\ndone; {failures} failures")
     return 1 if failures else 0
 

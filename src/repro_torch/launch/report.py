@@ -4,8 +4,10 @@
 
 The roofline table's "fits?" tests a cell's memory per device against its
 device model's ``dram_bytes`` (80 GiB for ``gpu_sm90``; the reference
-hard-codes a v5e's 16 GiB); the "collective" column shows "—" where the
-term is ``None`` (no collectives in one process).
+hard-codes a v5e's 16 GiB). The "collective" and "collective B/chip"
+columns hold the partitioned count's collective term and bytes per
+device ("—" only for a record of an unpartitioned count, whose term is
+``None``).
 """
 from __future__ import annotations
 

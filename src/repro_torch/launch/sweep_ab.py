@@ -23,6 +23,14 @@ iters=1003)`` (one call, device time, warm only), and prints its digest
 and subnormal cells without gating them: two checkouts may flush a
 diffusion front's subnormal tail differently. Exits non-zero without a
 card, or if the kernels' digests differ.
+
+    python -m repro_torch.launch.sweep_ab --other PATH --lm
+
+times the LM serving path of ``chip_smoke.py``'s phase 7 in place of the
+kernels: qwen2.5-3b at full width in bf16 with K8 (``attn_impl="flash"``),
+one ``ServeEngine`` prefill wave of 4 x 2048 tokens and a decode step
+(host wall, median of 5 and of 3 x 16 steps, as phase 7 times them), in
+the same turns. The prefill logits' digest must agree across checkouts.
 """
 from __future__ import annotations
 
@@ -126,9 +134,57 @@ def _child() -> None:
     print(json.dumps(res))
 
 
-def _run(tree: pathlib.Path) -> dict:
+def _wall_ms(fn, reps: int) -> float:
+    """Median host milliseconds of ``fn()`` ending in a synchronize."""
+    import time
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+
+def _child_lm() -> None:
+    """Time phase 7's serving path with the ``repro_torch`` on
+    ``sys.path`` and print one JSON line."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import Request, ServeEngine
+    wave, prompt, new = 4, 2048, 32
+    cfg = dataclasses.replace(configs.get_config("qwen2.5-3b"),
+                              attn_impl="flash")
+    model = build_model(cfg, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    model.requires_grad_(False)
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (wave, prompt), generator=g)
+    eng = ServeEngine(model, batch_size=wave, max_len=prompt + new + 8)
+    eng.generate([Request(prompt=p.numpy(), max_new_tokens=new)
+                  for p in toks.to(torch.int32)])  # the one-time casts
+    toks = toks.cuda()
+    logits, cache = eng._prefill(toks)
+    step = logits.argmax(-1)[:, None]
+    res = {"prefill bfloat16": {
+        "warm_ms": _wall_ms(lambda: eng._prefill(toks), 5),
+        "digest": hashlib.sha256(logits.float().cpu().numpy().tobytes())
+        .hexdigest()[:16]},
+        "decode bfloat16": {
+        "warm_ms": _wall_ms(lambda: [eng._decode(cache, step)
+                                     for _ in range(16)], 3) / 16,
+        "digest": None}}
+    for row in res.values():
+        row["cold_ms"] = float("nan")
+    print(json.dumps(res))
+
+
+def _run(tree: pathlib.Path, lm: bool = False) -> dict:
     env = dict(os.environ, PYTHONPATH=str(tree / "src"))
-    got = subprocess.run([sys.executable, __file__, "--child"], env=env,
+    got = subprocess.run([sys.executable, __file__,
+                          "--child-lm" if lm else "--child"], env=env,
                          capture_output=True, text=True, timeout=600)
     if got.returncode != 0:
         raise SystemExit(f"sweep_ab: {tree} failed:\n{got.stderr[-4000:]}")
@@ -140,23 +196,31 @@ def main(argv=None) -> None:
     ap.add_argument("--other", type=pathlib.Path,
                     help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--lm", action="store_true",
+                    help="time phase 7's serving path, not the kernels")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--child-lm", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("sweep_ab times CUDA kernels and needs a card")
     if args.child:
         _child()
         return
+    if args.child_lm:
+        _child_lm()
+        return
     if args.other is None:
         ap.error("--other is required")
     this = pathlib.Path(__file__).resolve().parents[3]
-    print(f"card: {torch.cuda.get_device_name(0)}; grid {NY + 2}x{NX + 2}, "
-          "5-point; ms a call, warm / cold")
+    print(f"card: {torch.cuda.get_device_name(0)}; " + (
+        "qwen2.5-3b, 4 x 2048 tokens, bf16, flash; wall ms" if args.lm else
+        f"grid {NY + 2}x{NX + 2}, 5-point; ms a call, warm / cold"))
     digests = {}
     for rnd in range(args.rounds):
         for label, tree in (("other", args.other), ("this", this),
                             ("this", this), ("other", args.other)):
-            res = _run(tree.resolve())
+            res = _run(tree.resolve(), args.lm)
             for key, row in res.items():
                 extra = (f" main_digest={row['main_digest']} "
                          f"subnormal_cells={row['subnormal_cells']}"

@@ -13,13 +13,13 @@ import dataclasses
 import torch
 
 from repro_torch.configs.shapes import SHAPES
+from repro_torch.dist.sharding import axis_sizes
 from repro_torch.models.base import ModelConfig
 
 
 def dp_size(mesh) -> int:
-    n = mesh.shape.get("data", 1)
-    n *= mesh.shape.get("pod", 1)
-    return n
+    shape = axis_sizes(mesh)
+    return shape.get("data", 1) * shape.get("pod", 1)
 
 
 # (arch, shape) -> knob overrides, the reference's.

@@ -18,10 +18,19 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import constrain, on_mesh, view, write_slice
 from repro_torch.layers.rope import apply_rope
 from repro_torch.models.base import ModelConfig, ParamInit, Params
 
 NEG_INF = -1e30
+#: The queries grouped by KV head: KV heads take the model axis when they
+#: divide it, otherwise the GQA group, otherwise the query sequence
+#: (context parallelism), as the reference constrains them.
+QG_AXES = ("batch", "qseq", "kv_heads", "heads", None)
 
 
 class KVCache(NamedTuple):
@@ -60,6 +69,7 @@ def _project_qkv(p: GQA, x: torch.Tensor, cfg: ModelConfig):
     dt = cfg.dtype
     bsz, s, _ = x.shape
     h, k, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    x = constrain(x, ("batch", None, None))  # TP's input, whole
     q = x @ p.w("wq", dt)
     kk = x @ p.w("wk", dt)
     v = x @ p.w("wv", dt)
@@ -67,8 +77,53 @@ def _project_qkv(p: GQA, x: torch.Tensor, cfg: ModelConfig):
         q = q + p.w("bq", dt)
         kk = kk + p.w("bk", dt)
         v = v + p.w("bv", dt)
-    return (q.reshape(bsz, s, h, hd), kk.reshape(bsz, s, k, hd),
-            v.reshape(bsz, s, k, hd))
+    return (view(q, (bsz, s, h, hd), ("batch", "qseq", "heads", None)),
+            view(kk, (bsz, s, k, hd), ("batch", None, "kv_heads", None)),
+            view(v, (bsz, s, k, hd), ("batch", None, "kv_heads", None)))
+
+
+def _attend(core, qg, k, v, q_pos, k_pos, *args):
+    """``core(qg, k, v, q_pos, k_pos, *args)``: under a ``DeviceMesh``,
+    on each rank's blocks (``local_map``), where the keys' sequence is
+    whole: the layout the reference's constraints ask for (batch over
+    data, KV heads over model where they divide it, else the GQA group,
+    else the query sequence) leaves every rank the keys its queries
+    attend to, so attention needs no collective, as in GSPMD's partition
+    of it. A decode step's cache splits the keys' sequence: its core
+    runs on the DTensors, the softmax's reduction over the split."""
+    mesh = shd._device_mesh()
+    if mesh is None or not isinstance(qg, DTensor) or any(
+            isinstance(p, Shard) and p.dim == 1
+            for t in (k, v) for p in t.placements):
+        return core(qg, k, v, q_pos, k_pos, *args)
+
+    def pos(pl):  # positions (B, S) split as the batch and sequence dims
+        return tuple(p if isinstance(p, Shard) and p.dim < 2
+                     else Replicate() for p in pl)
+
+    def local(*blocks):
+        with shd.local_blocks():
+            return core(*blocks, *args)
+
+    return local_map(
+        local, out_placements=(qg.placements,),
+        in_placements=(qg.placements, k.placements, v.placements,
+                       pos(qg.placements), pos(k.placements)),
+        device_mesh=mesh, redistribute_inputs=True)(
+        qg, k, v, shd.on_mesh(q_pos), shd.on_mesh(k_pos))
+
+
+def _full_core(qg, k, v, q_pos, k_pos, causal, dtype):
+    """Attention of the queries grouped by KV head, qg (B, Sq, K, G, hd),
+    over k/v (B, Sk, K, hd): ctx (B, Sq, K, G, hdv)."""
+    scale = qg.shape[-1] ** -0.5
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        mask = k_pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]
+        scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(dtype)
+    return torch.einsum("bkgqs,bskh->bqkgh", p, v)
 
 
 def _full_attention(q, k, v, q_pos, k_pos, causal, cfg: ModelConfig):
@@ -80,39 +135,22 @@ def _full_attention(q, k, v, q_pos, k_pos, causal, cfg: ModelConfig):
     bsz, sq, h, hd = q.shape
     kh = k.shape[2]
     hdv = v.shape[-1]
-    g = h // kh
-    qg = q.reshape(bsz, sq, kh, g, hd)
-    scale = hd ** -0.5
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.to(torch.float32),
-                          k.to(torch.float32)) * scale
-    if causal:
-        mask = k_pos[:, None, None, None, :] <= q_pos[:, None, None, :, None]
-        scores = torch.where(mask, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1).to(cfg.dtype)
-    ctx = torch.einsum("bkgqs,bskh->bqkgh", p, v)
-    return ctx.reshape(bsz, sq, h, hdv)
+    qg = view(q, (bsz, sq, kh, h // kh, hd), QG_AXES)
+    ctx = _attend(_full_core, qg, k, v, q_pos, k_pos, causal, cfg.dtype)
+    return view(ctx, (bsz, sq, h, hdv), ("batch", "qseq", "heads", None))
 
 
-def _chunked_attention(q, k, v, q_pos, k_pos, causal, cfg: ModelConfig):
-    """Online-softmax loop over KV chunks (memory O(S·chunk)).
-
-    P is rounded to the compute dtype before P V (f32 sums), as in the
-    reference.
-    """
-    bsz, sq, h, hd = q.shape
+def _chunked_core(qg, k, v, q_pos, k_pos, causal, dtype, chunk):
+    """:func:`_full_core` as an online-softmax loop over KV chunks; ctx in
+    f32."""
+    bsz, sq, kh, g, hd = qg.shape
     sk = k.shape[1]
-    kh = k.shape[2]
     hdv = v.shape[-1]
-    g = h // kh
-    chunk = min(cfg.attn_chunk, sk)
-    if sk % chunk:
-        raise ValueError(f"chunked attention needs sk % chunk == 0; got "
-                         f"sk={sk}, chunk={chunk}")
-    qg = q.reshape(bsz, sq, kh, g, hd).to(torch.float32)
+    qg = qg.to(torch.float32)
     scale = hd ** -0.5
-    m = torch.full((bsz, kh, g, sq), NEG_INF, device=q.device)
-    lsum = torch.zeros((bsz, kh, g, sq), device=q.device)
-    acc = torch.zeros((bsz, kh, g, sq, hdv), device=q.device)
+    m = torch.full((bsz, kh, g, sq), NEG_INF, device=qg.device)
+    lsum = torch.zeros((bsz, kh, g, sq), device=qg.device)
+    acc = torch.zeros((bsz, kh, g, sq, hdv), device=qg.device)
     for c0 in range(0, sk, chunk):
         kb = k[:, c0:c0 + chunk].to(torch.float32)
         vb = v[:, c0:c0 + chunk]
@@ -126,12 +164,35 @@ def _chunked_attention(q, k, v, q_pos, k_pos, causal, cfg: ModelConfig):
         pmat = torch.exp(s - m_new[..., None])
         lsum = lsum * alpha + pmat.sum(dim=-1)
         upd = torch.einsum("bkgqs,bskh->bkgqh",
-                           pmat.to(cfg.dtype).to(torch.float32),
+                           pmat.to(dtype).to(torch.float32),
                            vb.to(torch.float32))
         acc = acc * alpha[..., None] + upd
         m = m_new
     ctx = acc / torch.clamp(lsum[..., None], min=1e-30)
-    ctx = ctx.permute(0, 3, 1, 2, 4).reshape(bsz, sq, h, hdv)
+    return ctx.permute(0, 3, 1, 2, 4)
+
+
+def _chunked_attention(q, k, v, q_pos, k_pos, causal, cfg: ModelConfig):
+    """Online-softmax loop over KV chunks (memory O(S·chunk)).
+
+    P is rounded to the compute dtype before P V (f32 sums), as in the
+    reference. Under a ``DeviceMesh`` the loop runs on each rank's blocks
+    (:func:`_attend`).
+    """
+    bsz, sq, h, hd = q.shape
+    sk = k.shape[1]
+    kh = k.shape[2]
+    hdv = v.shape[-1]
+    chunk = min(cfg.attn_chunk, sk)
+    if sk % chunk:
+        raise ValueError(f"chunked attention needs sk % chunk == 0; got "
+                         f"sk={sk}, chunk={chunk}")
+    qg = view(q, (bsz, sq, kh, h // kh, hd), QG_AXES)
+    k = constrain(k, ("batch", None, "kv_heads", None))
+    v = constrain(v, ("batch", None, "kv_heads", None))
+    ctx = _attend(_chunked_core, qg, k, v, q_pos, k_pos, causal, cfg.dtype,
+                  chunk)
+    ctx = view(ctx, (bsz, sq, h, hdv), ("batch", "qseq", "heads", None))
     return ctx.to(cfg.dtype)
 
 
@@ -163,8 +224,8 @@ def attention(p: GQA, x: torch.Tensor, positions: torch.Tensor,
         if start + sq > smax:
             raise ValueError(f"cache of {smax} tokens holds {start}; cannot "
                              f"append {sq}")
-        cache.k[:, start:start + sq] = k.to(cache.k.dtype)
-        cache.v[:, start:start + sq] = v.to(cache.v.dtype)
+        write_slice(cache.k, 1, start, k.to(cache.k.dtype))
+        write_slice(cache.v, 1, start, v.to(cache.v.dtype))
         new_cache = KVCache(cache.k, cache.v, start + sq)
         if sq > cfg.attn_chunk:
             # Long prefill into an empty cache: attend over the fresh K/V,
@@ -172,21 +233,23 @@ def attention(p: GQA, x: torch.Tensor, positions: torch.Tensor,
             # the serving engine's prefill contract).
             ctx = _long_attention(q, k, v, positions, True, cfg)
         else:
-            k_pos = torch.arange(smax, device=x.device).expand(bsz, smax)
+            k_pos = on_mesh(torch.arange(smax, device=x.device)
+                            .expand(bsz, smax))
             # Mask out the unwritten tail: beyond length is treated as future.
             k_pos = torch.where(k_pos < start + sq, k_pos,
                                 torch.iinfo(torch.int32).max)
             ctx = _full_attention(q, cache.k.to(dt), cache.v.to(dt),
                                   positions, k_pos, True, cfg)
-        out = ctx.reshape(bsz, sq, -1) @ p.w("wo", dt)
-        return out, new_cache
+        out = view(ctx, (bsz, sq, -1), ("batch", None, "heads")) \
+            @ p.w("wo", dt)
+        return constrain(out, ("batch", None, None)), new_cache
 
     if sq > cfg.attn_chunk:
         ctx = _long_attention(q, k, v, positions, cfg.causal, cfg)
     else:
         ctx = _full_attention(q, k, v, positions, positions, cfg.causal, cfg)
-    out = ctx.reshape(bsz, sq, -1) @ p.w("wo", dt)
-    return out, None
+    out = view(ctx, (bsz, sq, -1), ("batch", None, "heads")) @ p.w("wo", dt)
+    return constrain(out, ("batch", None, None)), None
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,

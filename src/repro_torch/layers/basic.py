@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.sharding import constrain, gathered, lookup
+
 from repro_torch.models.base import ModelConfig, ParamInit, Params
 
 
@@ -71,10 +73,12 @@ class SwiGLU(Params):
 
 def swiglu(p: SwiGLU, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = cfg.dtype
+    x = constrain(x, ("batch", None, None))  # TP's input, whole
     g = x @ p.w("gate", dt)
     u = x @ p.w("up", dt)
     h = F.silu(g.to(torch.float32)).to(dt) * u
-    return h @ p.w("down", dt)
+    h = constrain(h, ("batch", None, "mlp"))
+    return constrain(h @ p.w("down", dt), ("batch", None, None))
 
 
 class GeluMLP(Params):
@@ -95,9 +99,12 @@ class GeluMLP(Params):
 def gelu_mlp(p: GeluMLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The reference's ``jax.nn.gelu``: the tanh approximation, in f32."""
     dt = cfg.dtype
+    x = constrain(x, ("batch", None, None))  # TP's input, whole
     h = x @ p.w("up", dt) + p.w("up_b", dt)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(dt)
-    return h @ p.w("down", dt) + p.w("down_b", dt)
+    h = constrain(h, ("batch", None, "mlp"))
+    return constrain(h @ p.w("down", dt), ("batch", None, None)) \
+        + p.w("down_b", dt)
 
 
 class Projection(nn.Module):
@@ -116,7 +123,8 @@ class Projection(nn.Module):
             self.b = init.zeros((d_out,))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        y = x.to(dtype) @ self.w.to(dtype)
+        x = constrain(x.to(dtype), ("batch", None, None))
+        y = x @ gathered(self.w.to(dtype))
         return y + self.b.to(dtype) if hasattr(self, "b") else y
 
 
@@ -135,7 +143,7 @@ class Embedding(Params):
 
 def embed(p: Embedding, tokens: torch.Tensor,
           cfg: ModelConfig) -> torch.Tensor:
-    return p.w("table", cfg.dtype)[tokens]
+    return lookup(p.w("table", cfg.dtype), tokens, ("batch", None, None))
 
 
 def head_weight(p: Embedding, cfg: ModelConfig) -> torch.Tensor:
@@ -148,4 +156,5 @@ def head_weight(p: Embedding, cfg: ModelConfig) -> torch.Tensor:
 
 def unembed(p: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits in f32 over the padded vocab (softmax stability)."""
+    x = constrain(x, ("batch", None, None))  # TP's input, whole
     return (x @ head_weight(p, cfg)).to(torch.float32)

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.dist.sharding import constrain, on_mesh, view, write_slice
 from repro_torch.layers.attention import (NEG_INF, _chunked_attention,
                                           _full_attention)
 from repro_torch.layers.basic import RMSNorm, rms_norm
@@ -69,12 +70,14 @@ def _queries(p: MLA, x, positions, cfg: ModelConfig):
     dt = cfg.dtype
     bsz, s, _ = x.shape
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    x = constrain(x, ("batch", None, None))  # TP's input, whole
     if cfg.q_lora_rank:
         cq = rms_norm(p.q_norm, x @ p.w("q_down", dt), cfg.norm_eps)
         q = cq @ p.w("q_up", dt)
     else:
         q = x @ p.w("q_proj", dt)
-    q = q.reshape(bsz, s, cfg.n_heads, nope + rope)
+    q = view(q, (bsz, s, cfg.n_heads, nope + rope),
+             ("batch", "qseq", "heads", None))
     q_rope = apply_rope(q[..., nope:], positions, frac=1.0,
                         theta=cfg.rope_theta)
     return q[..., :nope], q_rope
@@ -82,7 +85,7 @@ def _queries(p: MLA, x, positions, cfg: ModelConfig):
 
 def _latents(p: MLA, x, positions, cfg: ModelConfig):
     kvr = cfg.kv_lora_rank
-    down = x @ p.w("kv_down", cfg.dtype)
+    down = constrain(x @ p.w("kv_down", cfg.dtype), ("batch", None, None))
     c_kv = rms_norm(p.kv_norm, down[..., :kvr], cfg.norm_eps)
     # One shared rope "head" (broadcast over query heads).
     k_rope = apply_rope(down[:, :, None, kvr:], positions, frac=1.0,
@@ -95,8 +98,8 @@ def _append(cache: MLACache, c_kv, k_rope) -> MLACache:
     if start + s > smax:
         raise ValueError(f"cache of {smax} tokens holds {start}; cannot "
                          f"append {s}")
-    cache.c_kv[:, start:start + s] = c_kv.to(cache.c_kv.dtype)
-    cache.k_rope[:, start:start + s] = k_rope.to(cache.k_rope.dtype)
+    write_slice(cache.c_kv, 1, start, c_kv.to(cache.c_kv.dtype))
+    write_slice(cache.k_rope, 1, start, k_rope.to(cache.k_rope.dtype))
     return MLACache(cache.c_kv, cache.k_rope, start + s)
 
 
@@ -122,8 +125,8 @@ def mla_attention(p: MLA, x: torch.Tensor, positions: torch.Tensor,
 
     q_nope, q_rope = _queries(p, x, positions, cfg)
     c_kv, k_rope = _latents(p, x, positions, cfg)
-    w_ku = p.w("k_up", dt).reshape(kvr, h, nope)
-    w_vu = p.w("v_up", dt).reshape(kvr, h, vhd)
+    w_ku = view(p.w("k_up", dt), (kvr, h, nope), (None, "heads", None))
+    w_vu = view(p.w("v_up", dt), (kvr, h, vhd), (None, "heads", None))
 
     if cache is not None and s > cfg.attn_chunk:
         new_cache = _append(cache, c_kv, k_rope)
@@ -135,7 +138,7 @@ def mla_attention(p: MLA, x: torch.Tensor, positions: torch.Tensor,
         new_cache = _append(cache, c_kv, k_rope)
         c_all, r_all = new_cache.c_kv.to(dt), new_cache.k_rope.to(dt)
         smax = c_all.shape[1]
-        k_pos = torch.arange(smax, device=x.device)[None, :]
+        k_pos = on_mesh(torch.arange(smax, device=x.device)[None, :])
         valid = k_pos < new_cache.length
         q_abs = torch.einsum("bshn,rhn->bshr", q_nope, w_ku)
         # f32 scores of the compute-dtype operands (the reference's
@@ -150,17 +153,23 @@ def mla_attention(p: MLA, x: torch.Tensor, positions: torch.Tensor,
         pr = torch.softmax(scores, dim=-1).to(dt)
         ctx_lat = torch.einsum("bhst,btr->bshr", pr, c_all)
         ctx = torch.einsum("bshr,rhv->bshv", ctx_lat, w_vu)
-        return ctx.reshape(bsz, s, h * vhd) @ p.w("wo", dt), new_cache
+        out = view(ctx, (bsz, s, h * vhd), ("batch", None, "heads")) \
+            @ p.w("wo", dt)
+        return constrain(out, ("batch", None, None)), new_cache
 
     # -------- prefill/training path: expand latents to full K/V --------
     k_nope = torch.einsum("btr,rhn->bthn", c_kv, w_ku)
     v = torch.einsum("btr,rhv->bthv", c_kv, w_vu)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(bsz, s, h, rope)],
-                  dim=-1)
+    heads = ("batch", None, "heads", None)
+    k = torch.cat([constrain(k_nope, heads), constrain(
+        k_rope[:, :, None, :].expand(bsz, s, h, rope), heads)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     attend = _chunked_attention if s > cfg.attn_chunk else _full_attention
-    ctx = attend(q, k, v, positions, positions, cfg.causal, cfg)
-    return ctx.reshape(bsz, s, h * vhd) @ p.w("wo", dt), None
+    ctx = attend(q, k, constrain(v, heads), positions, positions,
+                 cfg.causal, cfg)
+    out = view(ctx, (bsz, s, h * vhd), ("batch", None, "heads")) \
+        @ p.w("wo", dt)
+    return constrain(out, ("batch", None, None)), None
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,

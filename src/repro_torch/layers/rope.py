@@ -3,14 +3,16 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import on_mesh
+
 
 def rope_angles(positions: torch.Tensor, dim: int,
                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for ``dim`` rotated dims. positions: (...,) int."""
     if dim % 2:
         raise ValueError(f"rotated dims must be even; got {dim}")
-    exps = torch.arange(0, dim, 2, dtype=torch.float32,
-                        device=positions.device) / dim
+    exps = on_mesh(torch.arange(0, dim, 2, dtype=torch.float32,
+                                device=positions.device)) / dim
     inv = 1.0 / (theta ** exps)
     ang = positions.to(torch.float32)[..., None] * inv  # (..., dim/2)
     return torch.cos(ang), torch.sin(ang)

@@ -20,6 +20,11 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.sharding import constrain, view
 from repro_torch.kernels import ops
 from repro_torch.layers.basic import rms_norm
 from repro_torch.models.base import ModelConfig, ParamInit, Params
@@ -145,6 +150,39 @@ def ssd_scan(x, dt, a, bmat, cmat, chunk: int, dtype):
     return y.to(dtype), s
 
 
+def _ssd(x, dt, a, bmat, cmat, chunk: int, dtype):
+    """:func:`ssd_scan`; under a ``DeviceMesh``, on each rank's blocks
+    (``local_map``): the scan is independent over the batch and the
+    heads, so x and dt split as they are laid out (batch over data,
+    heads over model), ``a`` by its heads, B and C by the batch, and no
+    collective runs."""
+    mesh = shd._device_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return ssd_scan(x, dt, a, bmat, cmat, chunk, dtype)
+
+    def keep(pl, dims):  # x's split of (batch, heads) onto other dims
+        out = []
+        for p in pl:
+            d = p.dim if isinstance(p, Shard) else None
+            out.append(Shard(dims[d]) if d in dims else Replicate())
+        return tuple(out)
+
+    xpl = x.placements
+    if any(isinstance(p, Shard) and p.dim not in (0, 3) for p in xpl):
+        raise ValueError(f"the SSD scan splits batch and heads only: "
+                         f"{xpl}")
+
+    def local(*blocks):
+        with shd.local_blocks():
+            return ssd_scan(*blocks, chunk, dtype)
+
+    return local_map(
+        local, out_placements=(xpl, keep(xpl, {0: 0, 3: 2})),
+        in_placements=(xpl, keep(xpl, {0: 0, 3: 3}), keep(xpl, {3: 1}),
+                       keep(xpl, {0: 0}), keep(xpl, {0: 0})),
+        device_mesh=mesh, redistribute_inputs=True)(x, dt, a, bmat, cmat)
+
+
 def _gated_out(p: SSM, y: torch.Tensor, z: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     """Gated RMS norm (mamba2's RMSNormGated), norm(y * silu(z)), then the
@@ -152,7 +190,7 @@ def _gated_out(p: SSM, y: torch.Tensor, z: torch.Tensor,
     dt_ = cfg.dtype
     y = y * _silu_as(z, dt_)
     y = rms_norm(types.SimpleNamespace(scale=p.norm_scale), y, cfg.norm_eps)
-    return y @ p.w("out_proj", dt_)
+    return constrain(y @ p.w("out_proj", dt_), ("batch", None, None))
 
 
 def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig,
@@ -170,27 +208,33 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig,
     m = cfg.ssm_heads // g
     pdim, k = cfg.ssm_head_dim, cfg.ssm_conv
 
-    z = x @ p.w("z_proj", dt_)
-    xbc_pre = x @ p.w("xbc_proj", dt_)
+    x = constrain(x, ("batch", None, None))  # TP's input, whole
+    inner = ("batch", None, "ssm_inner")
+    z = constrain(x @ p.w("z_proj", dt_), inner)
+    xbc_pre = constrain(x @ p.w("xbc_proj", dt_), inner)
     dt_raw = x @ p.w("dt_proj", dt_)
 
     if cache is not None and l == 1:
         return _ssm_decode_step(p, z, xbc_pre, dt_raw, cfg, cache)
 
-    xbc = _conv(p, xbc_pre, cfg)
+    # Under a mesh the conv runs on the channels' split, and its output is
+    # gathered whole for the split into x, B and C.
+    xbc = constrain(_conv(p, xbc_pre, cfg), ("batch", None, None))
     xs, bc = xbc[..., :di], xbc[..., di:]
-    bc = bc.reshape(bsz, l, 2, g, n)
+    bc = view(bc, (bsz, l, 2, g, n), ("batch", None, None, None, None))
     bmat, cmat = bc[:, :, 0], bc[:, :, 1]
 
     dt = _softplus(dt_raw.to(torch.float32) + p.dt_bias.to(torch.float32))
-    a = -torch.exp(p.A_log.to(torch.float32)).reshape(g, m)
+    a = -view(torch.exp(p.A_log.to(torch.float32)), (g, m), (None, "heads"))
 
-    xh = xs.reshape(bsz, l, g, m, pdim)
-    y, final_state = ssd_scan(xh, dt.reshape(bsz, l, g, m), a, bmat, cmat,
-                              cfg.ssm_chunk, dt_)
-    y = y + (p.D.to(torch.float32).reshape(1, 1, g, m, 1)
+    heads = ("batch", None, None, "heads", None)
+    xh = view(xs, (bsz, l, g, m, pdim), heads)
+    y, final_state = _ssd(xh, view(dt, (bsz, l, g, m), heads[:4]), a, bmat,
+                          cmat, cfg.ssm_chunk, dt_)
+    y = y + (view(p.D.to(torch.float32), (1, 1, g, m, 1),
+                  (None, None, None, "heads", None))
              * xh.to(torch.float32)).to(dt_)
-    out = _gated_out(p, y.reshape(bsz, l, di), z, cfg)
+    out = _gated_out(p, view(y, (bsz, l, di), inner), z, cfg)
 
     new_cache = None
     if cache is not None:

@@ -32,8 +32,10 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.stencil import require_device
+from repro_torch.dist.sharding import gathered
 
 
 def round_up(x: int, m: int) -> int:
@@ -203,6 +205,8 @@ class Params(nn.Module):
         when grad is enabled and ``name`` requires grad, else a cached
         cast copy."""
         p = getattr(self, name)
+        if isinstance(p, DTensor):  # partitioned: cast, then gather
+            return gathered(p if p.dtype == dtype else p.to(dtype))
         if p.dtype == dtype:
             return p
         if p.requires_grad and torch.is_grad_enabled():

@@ -17,12 +17,14 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
+from repro_torch.dist.sharding import constrain, on_mesh
 from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, attention
 from repro_torch.models.base import (ModelConfig, ParamInit, logical_axes,
                                      with_config)
-from repro_torch.models.lm import detached, remat
+from repro_torch.models.lm import _pad_mask, detached, remat
 
 
 class EncoderLayer(nn.Module):
@@ -90,7 +92,7 @@ class EncoderModel(nn.Module):
         del last_only  # the encoder emits all frame logits (vocab is tiny)
         x = self.feature_proj(batch["features"], cfg.dtype)
         bsz, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(bsz, s)
+        positions = on_mesh(torch.arange(s, device=x.device).expand(bsz, s))
         for layer in self.layers:
             x = remat(layer, cfg.remat)(x, positions, cfg)
         x = basic.layer_norm(self.ln_f, x, cfg.norm_eps)
@@ -100,7 +102,14 @@ class EncoderModel(nn.Module):
         """Returns (ce, {"ce": ce}): frame CE against ``batch["labels"]``."""
         cfg = self.cfg
         logits, _, _ = self.forward(batch)
-        logz = torch.logsumexp(logits[..., :cfg.vocab_size], dim=-1)
-        gold = torch.gather(logits, -1, batch["labels"][..., None])[..., 0]
+        if isinstance(logits, DTensor):
+            # the vocab is split: mask its padded tail where it lies (a
+            # slice of the split dim would gather the logits whole)
+            logz = torch.logsumexp(logits + _pad_mask(
+                cfg.padded_vocab, cfg.vocab_size, logits.device), dim=-1)
+        else:
+            logz = torch.logsumexp(logits[..., :cfg.vocab_size], dim=-1)
+        gold = constrain(torch.gather(logits, -1, batch["labels"][..., None]),
+                         ("batch", None, None))[..., 0]  # lm.ce_from_hidden
         ce = torch.mean(logz - gold)
         return ce, detached({"ce": ce})

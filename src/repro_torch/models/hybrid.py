@@ -32,6 +32,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import on_mesh
 from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, KVCache, attention, init_kv_cache
 from repro_torch.layers.ssm import SSMCache, init_ssm_cache
@@ -124,8 +125,8 @@ class HybridLM(nn.Module):
         emb = basic.embed(self.embedding, batch["tokens"], cfg)
         bsz, s, _ = emb.shape
         start = 0 if cache is None else cache["kv"].length
-        positions = (start + torch.arange(s, device=emb.device)).expand(
-            bsz, s)
+        positions = on_mesh((start + torch.arange(s, device=emb.device))
+                            .expand(bsz, s))
         ssm_g = None if cache is None else cache["ssm_groups"]
         ssm_t = None if cache is None else cache.get("ssm_tail")
         x = emb

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from repro_torch.dist.sharding import constrain, on_mesh
 from repro_torch.layers import basic
 from repro_torch.layers.attention import GQA, KVCache, attention, init_kv_cache
 from repro_torch.layers.mla import MLA, MLACache, init_mla_cache, mla_attention
@@ -153,8 +154,9 @@ class DecoderLM(nn.Module):
         x = self._embed_inputs(batch)
         bsz, s, _ = x.shape
         start = 0 if cache is None else cache_length(cache)
-        positions = (start + torch.arange(s, device=x.device)).expand(bsz, s)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        positions = on_mesh(
+            (start + torch.arange(s, device=x.device)).expand(bsz, s))
+        zero = on_mesh(torch.zeros((), dtype=torch.float32, device=x.device))
         aux = dict.fromkeys(MOE_AUX, zero) if cfg.n_experts else {}
         for i, layer in enumerate(self.layers):
             if cache is None:
@@ -233,7 +235,7 @@ def detached(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def _pad_mask(padded_vocab: int, true_vocab: int, device) -> torch.Tensor:
     """-1e30 additive bias over the padded vocab tail (f32)."""
     ids = torch.arange(padded_vocab, device=device)
-    return torch.where(ids < true_vocab, 0.0, -1e30).to(torch.float32)
+    return on_mesh(torch.where(ids < true_vocab, 0.0, -1e30).to(torch.float32))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -241,7 +243,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean next-token CE; padded vocab ids masked out of the softmax."""
     logits = logits + _pad_mask(padded_vocab, true_vocab, logits.device)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    gold = constrain(torch.gather(logits, -1, labels[..., None]),
+                     ("batch", None, None))[..., 0]  # see ce_from_hidden
     return torch.mean(logz - gold)
 
 
@@ -261,12 +264,16 @@ def ce_from_hidden(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     if s % chunk:
         chunk = s  # fall back (small odd sequences in tests)
     mask = _pad_mask(padded_vocab, true_vocab, x.device)
+    x = constrain(x, ("batch", None, None))  # TP's input, whole
     wf = w.to(torch.float32)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = on_mesh(torch.zeros((), dtype=torch.float32, device=x.device))
     for c0 in range(0, s, chunk):
         logits = x[:, c0:c0 + chunk].to(torch.float32) @ wf + mask
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels[:, c0:c0 + chunk, None])[..., 0]
+        # Under a mesh the vocab-split gather is a masked partial sum,
+        # summed here, before the select drops the axis its mask has.
+        gold = constrain(torch.gather(logits, -1,
+                                      labels[:, c0:c0 + chunk, None]),
+                         ("batch", None, None))[..., 0]
         total = total + torch.sum(logz - gold)
     return total / (bsz * s)

@@ -22,6 +22,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.dist.sharding import on_mesh
+
 f32 = torch.float32
 
 
@@ -38,7 +40,8 @@ class Optimizer:
 
 
 def _moments_like(tree, dtype=f32):
-    return {k: torch.zeros(p.shape, dtype=dtype, device=p.device)
+    # zeros_like: a DTensor parameter's moments take its placements
+    return {k: torch.zeros_like(p, dtype=dtype, requires_grad=False)
             for k, p in tree.items()}
 
 
@@ -79,7 +82,7 @@ def _optimizer(leaf: Callable, moments: tuple, lr: Callable | float,
     def begin(state):
         step = state.step + 1
         lr_t = torch.as_tensor(lr_fn(step), dtype=f32, device=step.device)
-        return step, step.to(f32), lr_t
+        return step, on_mesh(step.to(f32)), on_mesh(lr_t)
 
     def nu_of(state, k):
         return None if state.nu is None else state.nu[k]

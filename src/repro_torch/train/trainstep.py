@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.train.optimizer import Optimizer
 
@@ -58,12 +59,11 @@ def loss_and_grads(model, params, batch, accum_steps: int = 1,
     if b % accum_steps:
         raise ValueError(f"batch {b} is not a multiple of accum_steps "
                          f"{accum_steps}")
-    mb = b // accum_steps
-    grads = {k: torch.zeros(params[k].shape, dtype=accum_dtype,
-                            device=params[k].device) for k in names}
+    grads = {k: torch.zeros_like(params[k], dtype=accum_dtype,
+                                 requires_grad=False) for k in names}
     msum = None
     for i in range(accum_steps):
-        metrics, g = one({k: v[i * mb:(i + 1) * mb]
+        metrics, g = one({k: microbatch(v, i, accum_steps)
                           for k, v in batch.items()})
         for k in names:
             grads[k] += g[k].to(accum_dtype)
@@ -75,6 +75,23 @@ def loss_and_grads(model, params, batch, accum_steps: int = 1,
     for g in grads.values():
         g.div_(accum_steps)
     return {k: m / accum_steps for k, m in msum.items()}, grads
+
+
+def microbatch(x: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``n`` of ``x`` along its first axis: rows
+    ``[i * mb, (i + 1) * mb)``. Of a DTensor, each rank's block's rows
+    ``[i * lmb, (i + 1) * lmb)`` (``lmb`` = its rows / ``n``): every
+    device keeps its share of every microbatch and no row moves, where
+    a global row range would gather the batch; the microbatches hold
+    other rows than the unpartitioned split's, and together the same."""
+    if isinstance(x, DTensor):
+        local = x.to_local()
+        lmb = local.shape[0] // n
+        return DTensor.from_local(local[i * lmb:(i + 1) * lmb],
+                                  x.device_mesh, x.placements,
+                                  run_check=False)
+    mb = x.shape[0] // n
+    return x[i * mb:(i + 1) * mb]
 
 
 def make_train_step(model, opt: Optimizer, accum_steps: int = 1,

@@ -1,11 +1,12 @@
 """The port's dry run (``repro_torch.launch.dryrun``) and its report on the
-CPU: one arch's four cells at smoke width on a small ``meta`` mesh
-(``count_cell`` and ``roofline.analyze``, which ``run_cell`` wraps), each
-against the counter and the sharding rules it is made from, the
-resumable JSON files of the CLI, ``report``'s tables (the collective
-column "—", "fits?" against the device model's 80 GiB), the production
-mesh at full width for one decode cell, and the ``--backend sim``
-stencil cells."""
+CPU: one arch's four cells at smoke width partitioned on a ``(4, 2)``
+``DeviceMesh`` over a fake group (``count_cell`` and
+``roofline.analyze``, which ``run_cell`` wraps), each against the
+counter and the sharding rules it is made from (per-device terms as
+counted, a collective term), the resumable JSON files of the CLI,
+``report``'s tables (the collective columns, "fits?" against the device
+model's 80 GiB), the production mesh at full width for one decode cell,
+and the ``--backend sim`` stencil cells."""
 import json
 import math
 
@@ -18,6 +19,7 @@ from repro_torch.configs.shapes import SHAPES, cell_supported
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.mesh import ShardMesh
 from repro_torch.launch import dryrun, report, tuning
+from repro_torch.launch.mesh import fake_device_mesh
 from repro_torch.models.registry import build_model, count_active_params
 
 ARCH = "qwen2.5-3b"
@@ -29,15 +31,16 @@ def records():
     """Each supported cell's knobs, memory per device and roofline."""
     cfg0 = TC.get_smoke_config(ARCH)
     out = {}
-    for shape, cell in SHAPES.items():
-        if not cell_supported(cfg0, shape)[0]:
-            continue
-        cfg, knobs = tuning.tuned(cfg0, shape, MESH)
-        cost, mem = dryrun.count_cell(cfg, cell, MESH, knobs)
-        rl = roofline.analyze(cost, 8, dryrun.model_flops(cfg0, cell),
-                              hw="gpu_sm90")
-        out[shape] = {"accum_steps": knobs.accum_steps, "memory": mem,
-                      "roofline": rl.as_dict()}
+    with fake_device_mesh((4, 2), ("data", "model")) as mesh:
+        for shape, cell in SHAPES.items():
+            if not cell_supported(cfg0, shape)[0]:
+                continue
+            cfg, knobs = tuning.tuned(cfg0, shape, MESH)
+            cost, mem = dryrun.count_cell(cfg, cell, mesh, knobs)
+            rl = roofline.analyze(cost, 8, dryrun.model_flops(cfg0, cell),
+                                  hw="gpu_sm90")
+            out[shape] = {"accum_steps": knobs.accum_steps, "memory": mem,
+                          "roofline": rl.as_dict(), "cost": cost}
     return out
 
 
@@ -49,14 +52,23 @@ def test_four_cells_at_smoke_width(records):
     for shape in ("train_4k", "prefill_32k", "decode_32k"):
         rec = records[shape]
         cell = SHAPES[shape]
-        rl = rec["roofline"]
+        rl, cost = rec["roofline"], rec["cost"]
         assert rl["n_devices"] == 8
-        assert rl["collective_s"] is None and rl["coll_bytes"] is None
-        assert rl["compute_s"] == pytest.approx(
-            rl["flops"] / 8 / 989e12)
+        # per device as counted on rank 0's local shapes, no even split
+        assert rl["compute_s"] == pytest.approx(cost.dot_flops / 989e12)
+        assert rl["flops"] == 8 * cost.dot_flops
         assert rl["memory_s"] == pytest.approx(
-            rl["hbm_bytes"] / 8 / 3.35e12)
-        assert rl["bound_s"] == max(rl["compute_s"], rl["memory_s"])
+            cost.hbm_proxy_bytes / 3.35e12)
+        hw = roofline.resolve_hw("gpu_sm90")
+        assert rl["coll_bytes"] == int(cost.collective_bytes) > 0
+        assert rl["collective_s"] == pytest.approx(
+            cost.collective_bytes / hw["ici_bw"])
+        assert cost.collective_count == 0 or cost.collective_by_op
+        assert sum(cost.collective_by_op.values()) == pytest.approx(
+            cost.collective_bytes)
+        assert rl["cross_pod_bytes"] == 0 and rl["collective_reason"] is None
+        assert rl["bound_s"] == max(rl["compute_s"], rl["memory_s"],
+                                    rl["collective_s"])
         assert rl["model_flops"] == dryrun.model_flops(cfg0, cell)
         mem = rec["memory"]
         assert mem["total_nonalias"] == (
@@ -92,6 +104,9 @@ def test_cli_writes_resumable_records_and_report(tmp_path, capsys):
         TC.get_config(ARCH), "decode_32k",
         dryrun.make_production_mesh())[1].accum_steps
     assert rec["count_s"] >= 0 and rec["cost"]["ops"] > 0
+    assert rec["cost"]["collective_count"] > 0
+    assert rec["cost"]["collective_by_op"]
+    assert rec["roofline"]["collective_s"] > 0
     assert "[ok     ] pod" in capsys.readouterr().out
     assert dryrun.main(argv) == 0
     assert "[cached ]" in capsys.readouterr().out
@@ -99,8 +114,11 @@ def test_cli_writes_resumable_records_and_report(tmp_path, capsys):
     table = report.roofline_table(recs, "pod")
     row = table.splitlines()[2]
     assert row.startswith(f"| {ARCH} | decode_32k | ✓ |")
-    assert "| — |" in row and "memory" in row
-    assert "| ok |" in report.dryrun_table(recs)
+    assert "| — |" not in row and "memory" in row
+    coll = f"{rec['roofline']['coll_bytes']:.2e}"
+    assert f"| ok |" in report.dryrun_table(recs)
+    assert report.dryrun_table(recs).splitlines()[2].endswith(
+        f"| {coll} |")
     report.main(["--dir", str(tmp_path), "--which", "dryrun"])
     assert f"| pod | {ARCH} | decode_32k | ok" in capsys.readouterr().out
 

@@ -60,7 +60,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
             "repro_torch.train.fault", "repro_torch.train.compression",
             "repro_torch.launch.train", "repro_torch.examples.train_lm",
             "repro_torch.examples.fault_tolerant_training",
-            "repro_torch.launch.sharded"} <= set(MODULES)
+            "repro_torch.launch.sharded", "repro_torch.launch.partition",
+            "repro_torch.launch.mesh", "repro_torch.dist.sharding",
+            "repro_torch.hlo_analysis", "repro_torch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.launch.report"
+            } <= set(MODULES)
 
 
 def test_source_has_no_jax_or_repro_imports():

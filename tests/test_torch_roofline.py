@@ -47,7 +47,8 @@ and ``roofline`` on the CPU.
   K8 and K7 by their formulas and not their plain ops, and tracks the
   peak of live storages.
 * ``resolve_hw``/``V5E`` as in ``tests/test_device.py``; ``analyze``'s
-  terms, its ``None`` collective term, and ``memory_per_device``.
+  terms, partitioned (the collective term) and not (``None``), and
+  ``memory_per_device``.
 """
 import dataclasses
 
@@ -83,8 +84,8 @@ B, S, ACC = 4, 64, 2
 PROXY_RATIO = {
     ("qwen2.5-3b", "train"): 0.482, ("qwen2.5-3b", "prefill"): 0.661,
     ("qwen2.5-3b", "decode"): 0.155,
-    ("qwen3-moe-30b-a3b", "train"): 0.518,
-    ("qwen3-moe-30b-a3b", "prefill"): 0.711,
+    ("qwen3-moe-30b-a3b", "train"): 0.515,
+    ("qwen3-moe-30b-a3b", "prefill"): 0.693,
     ("qwen3-moe-30b-a3b", "decode"): 0.093,
     ("minicpm3-4b", "train"): 0.469, ("minicpm3-4b", "prefill"): 0.622,
     ("minicpm3-4b", "decode"): 0.119,
@@ -290,18 +291,41 @@ def test_roofline_hw_comes_from_registry():
 
 
 def test_analyze_and_memory_per_device():
-    cost = H.LoopAwareCost(dot_flops=989e12 * 4, hbm_proxy_bytes=3.35e12)
+    """A partitioned count is per device as counted, its collective term
+    the reference's (ICI, and the cross-pod bytes at DCI with a
+    ``pod_size``); an unpartitioned one is the count over the devices
+    with no collective term, and its reason."""
+    hw = TR.resolve_hw("gpu_sm90")
+    cost = H.LoopAwareCost(dot_flops=989e12, hbm_proxy_bytes=3.35e12 / 4,
+                           collective_bytes=3 * hw["ici_bw"])
     rl = TR.analyze(cost, 4, model_flops=989e12 * 2, hw="gpu_sm90")
     assert rl.compute_s == pytest.approx(1.0)
     assert rl.memory_s == pytest.approx(0.25)
-    assert rl.collective_s is None and rl.coll_bytes is None
-    assert rl.collective_reason == TR.NO_COLLECTIVES
-    assert rl.dominant == "compute" and rl.bound_s == rl.compute_s
+    assert rl.coll_bytes == int(cost.collective_bytes)
+    assert rl.cross_pod_bytes == 0
+    assert rl.collective_s == pytest.approx(3.0)
+    assert rl.collective_reason is None
+    assert rl.dominant == "collective" and rl.bound_s == rl.collective_s
+    assert rl.as_dict()["flops"] == 4 * cost.dot_flops
     assert rl.useful_ratio == pytest.approx(0.5)
-    assert rl.as_dict()["flops"] == cost.dot_flops
+    cost.cross_pod_bytes = hw["ici_bw"]  # a third of it across pods
+    pods = TR.analyze(cost, 4, pod_size=2, hw="gpu_sm90")
+    assert pods.collective_s == pytest.approx(
+        2.0 + hw["ici_bw"] / hw["dci_bw"])
+    one = TR.analyze(H.LoopAwareCost(dot_flops=989e12 * 4,
+                                     hbm_proxy_bytes=3.35e12), 4,
+                     model_flops=989e12 * 2, hw="gpu_sm90",
+                     partitioned=False)
+    assert one.compute_s == pytest.approx(1.0)
+    assert one.memory_s == pytest.approx(0.25)
+    assert one.collective_s is None and one.coll_bytes is None
+    assert one.collective_reason == TR.NO_COLLECTIVES
+    assert one.dominant == "compute" and one.bound_s == one.compute_s
+    assert one.useful_ratio == pytest.approx(0.5)
+    assert one.as_dict()["flops"] == 989e12 * 4
     assert TR.model_flops_train(10, 7) == JR.model_flops_train(10, 7)
     assert TR.model_flops_infer(10, 7) == JR.model_flops_infer(10, 7)
-    mem = TR.memory_per_device(100, 40, 30, 80, 4)
+    mem = TR.memory_per_device(100, 40, 30, 80)
     assert mem == {"argument_size_in_bytes": 100,
-                   "output_size_in_bytes": 40, "temp_size_in_bytes": 20,
-                   "alias_size_in_bytes": 30, "total_nonalias": 130}
+                   "output_size_in_bytes": 40, "temp_size_in_bytes": 80,
+                   "alias_size_in_bytes": 30, "total_nonalias": 190}

@@ -3,7 +3,8 @@
 full width on the pod and multipod mesh shapes (the port's spec equals
 ``tuple(jax_pspec)`` less the stacked leading entries, which are
 unsharded); a train state's moments by ``state_shardings``; the caches'
-axes; the batch layout; and ``constrain``, a no-op in the port.
+axes; the batch layout; and ``constrain``, a no-op without a
+``DeviceMesh`` and ``pspec_for``'s layout under one.
 
 The port's models carry one tensor a layer where the reference stacks
 them, so ``model.logical_axes()`` drops the stacked prefix; the mapping
@@ -225,10 +226,41 @@ def test_batch_shardings_equal_reference():
 
 
 def test_constrain_is_a_no_op():
+    """Without a ``DeviceMesh`` (none, or an in-process ``ShardMesh``),
+    ``constrain``, ``view``'s layout and ``on_mesh`` return their input
+    untouched; under a ``(2, 4)`` ``DeviceMesh`` over a fake group,
+    ``constrain`` lays a DTensor out by ``pspec_for``'s placements under
+    ``ACT_RULES`` (the divisibility fallback included), and ``on_mesh``
+    replicates a plain tensor."""
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch.launch.mesh import fake_device_mesh
     x = torch.randn(4, 8)
     assert TS.constrain(x, ("batch", None)) is x
+    assert TS.on_mesh(x) is x
     with TS.use_mesh(ShardMesh((2, 2), ("data", "model"), ["cpu"] * 4)):
         assert TS._context_mesh() is not None
         assert TS.constrain(x, ("batch", "heads")) is x
+        assert TS.on_mesh(x) is x
     assert TS._context_mesh() is None
     assert TS.replicated(POD) == tuple(P())
+    with fake_device_mesh((2, 4), ("data", "model")) as mesh:
+        d = distribute_tensor(torch.empty(4, 8, 6, device="meta"), mesh,
+                              [Replicate(), Replicate()], src_data_rank=None)
+        assert TS.constrain(d, ("batch", None, "heads")) is d  # no mesh
+        with TS.use_mesh(mesh):
+            for axes in [("batch", None, "heads"), ("batch", "heads", None),
+                         (None, "kv_heads", "heads"), ("qseq", None, None)]:
+                got = TS.constrain(d, axes)
+                spec = TS.pspec_for(axes, d.shape, mesh, TS.ACT_RULES)
+                assert isinstance(got, DTensor)
+                assert tuple(got.placements) == TS.placements(spec, mesh)
+            # 6 heads do not divide 4: the model axis stays unused
+            assert TS.constrain(d, ("batch", None, "heads")).placements == \
+                (Shard(0), Replicate())
+            assert TS.constrain(d, ("batch", "heads", None)).placements == \
+                (Shard(0), Shard(1))
+            r = TS.on_mesh(torch.empty(3, device="meta"))
+            assert isinstance(r, DTensor)
+            assert r.placements == (Replicate(), Replicate())
+            assert TS.on_mesh(r) is r
