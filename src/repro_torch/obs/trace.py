@@ -2,7 +2,10 @@
 
 The port's own copy of ``repro.obs.trace`` (stdlib only), with the same
 span names, so a trace of either package reads the same: ``engine.run``,
-``engine.run_converged`` and ``engine.build_schedule``.
+``engine.run_converged`` and ``engine.build_schedule``. The port adds
+``engine.launches`` (a schedule's loop of kernel launches) and
+``serve.result_copy`` (a served result's host copy), and request ids on
+the ``serve.*`` spans.
 
 **Disabled by default**: until a :class:`Tracer` is installed
 (``set_tracer`` / ``use_tracer``), the module-level :func:`span` returns
@@ -22,7 +25,12 @@ time series. Export surfaces:
   aggregated by span path (count, total, mean), for terminal output.
 
 Spans time the host: on a CUDA tensor a span around launches measures
-their enqueue unless the caller synchronizes inside it.
+their enqueue unless the caller synchronizes inside it. While
+``torch.profiler`` records, a span also enters
+``torch.profiler.record_function(<name>)`` for its extent, so the
+profiler's trace shows it as a host event on the device's clock, around
+the launches it made. The module imports no torch: it finds torch among
+the loaded modules, and only when a span opens on an installed tracer.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ import contextvars
 import dataclasses
 import json
 import os
+import sys
 import threading
 import time
 
@@ -91,10 +100,21 @@ class _NullSpan:
 NULL_SPAN = _NullSpan()
 
 
+def _profiler_mark(name: str):
+    """``torch.profiler.record_function(name)``, entered, while torch's
+    profiler records; else None (torch not loaded, or not recording)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch._C._autograd._profiler_enabled():
+        return None
+    mark = torch.profiler.record_function(name)
+    mark.__enter__()
+    return mark
+
+
 class Span:
     """A live span; records a frozen :class:`SpanEvent` on ``__exit__``."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_mark")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -107,11 +127,14 @@ class Span:
 
     def __enter__(self) -> "Span":
         self._tracer._stack.append(self.name)
+        self._mark = _profiler_mark(self.name)
         self._t0 = self._tracer._now_us()
         return self
 
     def __exit__(self, *exc) -> bool:
         t1 = self._tracer._now_us()
+        if self._mark is not None:
+            self._mark.__exit__(None, None, None)
         stack = self._tracer._stack
         path = tuple(stack)
         stack.pop()
@@ -250,12 +273,15 @@ def span_records(source) -> list[dict]:
 
     ``source`` may be a live :class:`Tracer`, a Chrome-trace dict, a raw
     ``traceEvents`` list, or a path to a trace file. Returns
-    ``[{"name", "path", "dur_us", "attrs"}, ...]``, identical whether the
-    trace is in memory or reloaded from disk.
+    ``[{"name", "path", "ts_us", "dur_us", "attrs"}, ...]`` (``ts_us`` the
+    start since the tracer's epoch), identical whether the trace is in
+    memory or reloaded from disk: times are rounded as the Chrome export
+    rounds them.
     """
     if isinstance(source, Tracer):
-        return [{"name": e.name, "path": e.path, "dur_us": e.dur_us,
-                 "attrs": dict(e.attrs)} for e in source.events]
+        return [{"name": e.name, "path": e.path, "ts_us": round(e.ts_us, 3),
+                 "dur_us": round(e.dur_us, 3), "attrs": dict(e.attrs)}
+                for e in source.events]
     if isinstance(source, str):
         source = load_trace(source)
     events = source.get("traceEvents", []) if isinstance(source, dict) \
@@ -267,6 +293,7 @@ def span_records(source) -> list[dict]:
         attrs = dict(ev.get("args") or {})
         path = tuple(str(attrs.pop("_path", ev.get("name", ""))).split("/"))
         recs.append({"name": ev.get("name", ""), "path": path,
+                     "ts_us": float(ev.get("ts", 0.0)),
                      "dur_us": float(ev.get("dur", 0.0)), "attrs": attrs})
     return recs
 

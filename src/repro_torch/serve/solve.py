@@ -134,6 +134,7 @@ class SolveRequest:
     stream_iterates: bool = False
 
     # Filled in by the server.
+    id: int | None = None         # sequential, from admission
     result: torch.Tensor | None = None
     iters_done: int = 0
     residual: float | None = None
@@ -206,6 +207,15 @@ def _host(u: torch.Tensor) -> torch.Tensor:
     """A host copy of ``u`` that later writes to the slots cannot reach
     (on the CPU, ``.cpu()`` would return ``u`` itself)."""
     return u.to("cpu", copy=True)
+
+
+def _result_copy(req: SolveRequest, u: torch.Tensor) -> torch.Tensor:
+    """:func:`_host` of a request's result, under a ``serve.result_copy``
+    span. On the card the copy waits for the stream's queued kernels
+    first, so the span holds that wait and the copy."""
+    with _obs_span("serve.result_copy", request=req.id,
+                   bytes=u.nbytes):
+        return _host(u)
 
 
 def _to_device(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -320,6 +330,7 @@ class SolveServer:
         self.tracer = tracer
         self._buckets: dict[BucketKey, _Bucket] = {}
         self._completed: list[SolveRequest] = []
+        self._admitted = 0
         self.warmed: dict[tuple, str] = {}
 
     def _obs(self):
@@ -335,13 +346,14 @@ class SolveServer:
         Raises :class:`SolveRejected` with structured diagnostics when the
         request cannot be scheduled (``SCHED-REQUEST-INFEASIBLE`` wraps
         planner and budget failures; ``check_schedule`` findings pass
-        through verbatim). Admissions bump ``serve.admitted``; every
-        rejection bumps ``serve.rejected.<CODE>``.
+        through verbatim). Admissions bump ``serve.admitted`` and give
+        the request the next :attr:`SolveRequest.id`; every rejection
+        bumps ``serve.rejected.<CODE>``.
         """
         with self._obs(), _obs_span("serve.submit", policy=req.policy,
                                     max_iters=req.max_iters) as sp:
             req = self._submit(req)
-            sp.set(bucket=req.key.describe(), t=req.key.t)
+            sp.set(bucket=req.key.describe(), t=req.key.t, request=req.id)
             return req
 
     def _grid(self, grid) -> torch.Tensor:
@@ -396,6 +408,8 @@ class SolveServer:
         if bucket is None:
             bucket = self._buckets[key] = _Bucket(key, self.max_slots)
         bucket.admit(req, key.fields())
+        req.id = self._admitted
+        self._admitted += 1
         _metrics.counter("serve.admitted").inc()
         return req
 
@@ -465,7 +479,7 @@ class SolveServer:
     def _evict(self, bucket: _Bucket, i: int, converged: bool) -> None:
         req = bucket.slots[i]
         bucket.slots[i] = None           # the slot is free immediately
-        self._finish(bucket, req, _host(bucket.us[i]), converged)
+        self._finish(bucket, req, _result_copy(req, bucket.us[i]), converged)
 
     def _finish(self, bucket: _Bucket, req: SolveRequest,
                 result: torch.Tensor, converged: bool) -> None:
@@ -489,8 +503,11 @@ class SolveServer:
         superblock is queued first, each with a non-blocking readback of
         its history, and only then are the histories replayed, so one
         bucket's replay overlaps the next bucket's kernels. Each launch
-        runs under a ``serve.block`` span and feeds the ``serve.*``
-        gauges and counters.
+        runs under a ``serve.block`` span (``requests``: the ids in its
+        slots), each finished request's host copy under a
+        ``serve.result_copy`` span, and each launch adds a sample of
+        active slots and queue to the ``serve.slots`` counter track and
+        its evictions to the ``serve.evictions`` counter.
         """
         with self._obs():
             return self._step()
@@ -542,7 +559,8 @@ class SolveServer:
         tol = None if req.tol is None else float(_tol_f32(req.tol))
         with _obs_span("serve.block", bucket=key.describe(),
                        launch=bucket.launches, active=1, queue=0,
-                       blocks=remaining, lone=True) as sp:
+                       blocks=remaining, lone=True,
+                       requests=[req.id]) as sp:
             v, iters, res = run_converged(
                 u, key.spec, tol=tol, max_iters=remaining * key.t,
                 policy=key.policy, t=key.t, device=key.device)
@@ -553,10 +571,10 @@ class SolveServer:
             converged = req.tol is not None and req.residual <= req.tol
             if i is not None:
                 bucket.slots[i] = None   # lane is stale; refills overwrite
-            self._finish(bucket, req, _host(v), converged)
+            self._finish(bucket, req, _result_copy(req, v), converged)
             sp.set(max_residual=req.residual, evicted=1)
         _metrics.counter("serve.evictions").inc(1)
-        self._gauges(bucket, req.residual)
+        self._slots_sample(bucket)
         return 1
 
     def _dispatch_superblock(self, bucket: _Bucket, pending: list) -> int:
@@ -586,7 +604,8 @@ class SolveServer:
                 tols[i] = float(_tol_f32(r.tol))
         cm = _obs_span("serve.block", bucket=key.describe(),
                        launch=bucket.launches, active=bucket.active,
-                       queue=len(bucket.queue), blocks=k)
+                       queue=len(bucket.queue), blocks=k,
+                       requests=[r.id for r in active])
         sp = cm.__enter__()
         dev = self._torch_device
         flags = _superblock(bucket, k, *(_to_device(x, dev) for x in
@@ -632,12 +651,9 @@ class SolveServer:
         sp.set(max_residual=max_residual, evicted=evicted)
         if evicted:
             _metrics.counter("serve.evictions").inc(evicted)
-        self._gauges(bucket, max_residual)
+        self._slots_sample(bucket)
 
-    def _gauges(self, bucket: _Bucket, max_residual: float) -> None:
-        _metrics.gauge("serve.active_slots").set(bucket.active)
-        _metrics.gauge("serve.queue_depth").set(len(bucket.queue))
-        _metrics.gauge("serve.max_residual").set(max_residual)
+    def _slots_sample(self, bucket: _Bucket) -> None:
         tracer = get_tracer()
         if tracer is not None:
             tracer.counter("serve.slots", {"active": bucket.active,

@@ -182,6 +182,31 @@ def test_run_schedules_equal_plain_schedules(cuda):
                                               iters=11, t=4))
 
 
+@pytest.mark.parametrize("donate", [False, True])
+def test_engine_launches_spans_count_the_card_launches(cuda, donate):
+    """The ``launches`` of the ``engine.launches`` spans equal the
+    kernels launched, and the traced runs equal the untraced ones."""
+    from repro_torch.obs.trace import Tracer, use_tracer
+    spec = TS.jacobi_2d_5pt()
+    u = _grid((70, 300), torch.float32, cuda, seed=4)
+    want = TE.run(u.clone(), spec, iters=11, t=4)
+    want_conv = TE.run_converged(u.clone(), spec, tol=None, max_iters=24,
+                                 t=8)[0]
+    tracer = Tracer()
+    before = sum(TE.LAUNCHES.values())
+    with use_tracer(tracer):
+        got = TE.run(u.clone(), spec, iters=11, t=4, donate=donate)
+        got_conv = TE.run_converged(u.clone(), spec, tol=None, max_iters=24,
+                                    t=8, donate=donate)[0]
+    torch.cuda.synchronize()
+    spans = [e for e in tracer.events if e.name == "engine.launches"]
+    assert [e.path[0] for e in spans] == ["engine.run"] + \
+        ["engine.run_converged"] * 3
+    assert sum(e.attrs["launches"] for e in spans) == \
+        sum(TE.LAUNCHES.values()) - before == 5 + 3
+    assert torch.equal(got, want) and torch.equal(got_conv, want_conv)
+
+
 def test_bad_inputs_raise(cuda):
     spec = TS.jacobi_2d_5pt()
     u = _grid((20, 40), torch.float64, cuda)

@@ -5,7 +5,8 @@
 file; ``python -m repro_torch.obs validate|summarize`` reads a trace
 written by ``launch/solve.py --serve --device cpu --trace`` and prints
 what ``python -m repro.obs`` prints; the port's solve server emits the
-reference's span and counter names with the same attrs.
+reference's span and counter names with the same attrs, and beside them
+its request ids and result copies (``tests/test_torch_spans.py``).
 """
 import json
 import os
@@ -170,9 +171,12 @@ def _problem(scale):
 
 
 def test_server_spans_and_counters_equal_the_reference():
-    """One workload through both servers: the same serve.* spans in the
-    same order with the same attrs (max_residual within f32 rounding),
-    and the same serve.slots counter samples."""
+    """One workload through both servers: restricted to the reference's
+    span names and attr keys, the same serve.* spans in the same order
+    with the same attrs (max_residual within f32 rounding), and the same
+    serve.slots counter samples. Beyond them the port has only its
+    request ids (``request``, ``requests``) and the ``serve.result_copy``
+    spans."""
     cases = [(1.0, 5e-2, 96), (0.5, 2.5e-2, 96), (0.25, None, 24)]
     jtr, ttr = JO.Tracer(), TO.Tracer()
     JServer(max_slots=2, superblock=2, interpret=True, tracer=jtr).solve(
@@ -184,17 +188,27 @@ def test_server_spans_and_counters_equal_the_reference():
                       tol=tol, max_iters=n, policy="temporal", t=8)
          for s, tol, n in cases])
 
-    def served(tracer, records, counters):
-        recs = [r for r in records(tracer) if r["name"].startswith("serve.")]
-        spans = [(r["name"], {k: v for k, v in r["attrs"].items()
-                              if k != "max_residual"}) for r in recs]
-        res = [r["attrs"]["max_residual"] for r in recs
-               if r["name"] == "serve.block"]
-        return spans, res, [(c["name"], c["values"])
-                            for c in counters(tracer)]
-    jspans, jres, jcount = served(jtr, JO.span_records, JO.counter_records)
-    tspans, tres, tcount = served(ttr, TO.span_records, TO.counter_records)
-    assert tspans == jspans and tcount == jcount
-    np.testing.assert_allclose(tres, jres, rtol=1e-5)
-    assert {n for n, _ in tspans} == {"serve.submit", "serve.block"}
-    assert any(a.get("lone") for _, a in tspans)
+    def served(recs):
+        return [r for r in recs if r["name"].startswith("serve.")]
+    jrecs = served(JO.span_records(jtr))
+    trecs = served(TO.span_records(ttr))
+    jnames = {r["name"] for r in jrecs}
+    kept = [r for r in trecs if r["name"] in jnames]
+    assert [r["name"] for r in kept] == [r["name"] for r in jrecs]
+    extra_keys = set()
+    for t, j in zip(kept, jrecs):
+        extra_keys |= set(t["attrs"]) - set(j["attrs"])
+        assert {k: v for k, v in t["attrs"].items()
+                if k in j["attrs"] and k != "max_residual"} == \
+            {k: v for k, v in j["attrs"].items() if k != "max_residual"}
+    np.testing.assert_allclose(
+        [r["attrs"]["max_residual"] for r in kept
+         if r["name"] == "serve.block"],
+        [r["attrs"]["max_residual"] for r in jrecs
+         if r["name"] == "serve.block"], rtol=1e-5)
+    assert [(c["name"], c["values"]) for c in TO.counter_records(ttr)] == \
+        [(c["name"], c["values"]) for c in JO.counter_records(jtr)]
+    assert jnames == {"serve.submit", "serve.block"}
+    assert {r["name"] for r in trecs} - jnames == {"serve.result_copy"}
+    assert extra_keys == {"request", "requests"}
+    assert any(r["attrs"].get("lone") for r in kept)
