@@ -15,8 +15,11 @@ nobody is watching.
 With a tracer installed, ``with span(name, **attrs) as sp`` records a
 frozen :class:`SpanEvent` on exit (start/duration in microseconds since
 the tracer's epoch, the nesting path, and the attrs; ``sp.set(...)``
-adds more mid-span). Counter *tracks* (:meth:`Tracer.counter`) record
-time series. Export surfaces:
+adds more mid-span). ``sp = begin(name, **attrs)`` ... ``sp.end()`` is a
+span that outlives the block it starts in (a served result's copy, begun
+at eviction and ended once on the host): it takes the path open at
+``begin`` and nests nothing. Counter *tracks* (:meth:`Tracer.counter`)
+record time series. Export surfaces:
 
 * :meth:`Tracer.write_trace` — Chrome-trace/Perfetto JSON; spans are
   ``ph: "X"`` complete events, counters ``ph: "C"`` tracks, attrs ride
@@ -90,6 +93,9 @@ class _NullSpan:
     def set(self, **attrs) -> "_NullSpan":
         return self
 
+    def end(self) -> None:
+        pass
+
     def __enter__(self) -> "_NullSpan":
         return self
 
@@ -114,7 +120,7 @@ def _profiler_mark(name: str):
 class Span:
     """A live span; records a frozen :class:`SpanEvent` on ``__exit__``."""
 
-    __slots__ = ("_tracer", "name", "attrs", "_t0", "_mark")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_mark", "_path")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -138,12 +144,27 @@ class Span:
         stack = self._tracer._stack
         path = tuple(stack)
         stack.pop()
+        self._record(path, t1)
+        return False
+
+    def begin(self) -> "Span":
+        """Start without entering: the span records the path open now
+        when :meth:`end` is called, and spans opened meanwhile do not
+        nest in it. It leaves no mark on the profiler's timeline, whose
+        host events must nest."""
+        self._path = tuple(self._tracer._stack) + (self.name,)
+        self._t0 = self._tracer._now_us()
+        return self
+
+    def end(self) -> None:
+        self._record(self._path, self._tracer._now_us())
+
+    def _record(self, path: tuple[str, ...], t1: float) -> None:
         self._tracer._emit(SpanEvent(
             name=self.name, path=path, ts_us=self._t0,
             dur_us=t1 - self._t0, pid=self._tracer.pid,
             tid=threading.get_ident() & 0x7FFFFFFF,
             attrs={k: _jsonable(v) for k, v in self.attrs.items()}))
-        return False
 
 
 class Tracer:
@@ -242,6 +263,15 @@ def span(name: str, **attrs):
     if tracer is None:
         return NULL_SPAN
     return tracer.span(name, **attrs)
+
+
+def begin(name: str, **attrs):
+    """A span started now and recorded by its ``end()``, whenever that
+    comes (:meth:`Span.begin`); the shared no-op with no tracer."""
+    tracer = _TRACER.get()
+    if tracer is None:
+        return NULL_SPAN
+    return tracer.span(name, **attrs).begin()
 
 
 def counter(name: str, values: dict) -> None:

@@ -33,6 +33,16 @@ request-level scheduling layer above the engine:
   before the next superblock. Realized iteration counts are multiples of
   ``t``, and every result equals ``engine.run(iters=request.iters_done)``
   bit for bit.
+* **result copies**: an evicted lane is copied into a free buffer of its
+  bucket's staging pool (pinned host memory on the card, at most
+  ``max_slots`` lanes a bucket, reused for the server's life) without
+  stopping the stream, behind an event. The slot is free at once; stream
+  order keeps the copy ahead of the refill. The server's copy thread
+  waits on the event and copies the buffer into a CPU tensor of the
+  request's own (fresh host memory, whose first touch costs more than
+  the copy), while the main thread goes on launching; a step ends by
+  finishing the copies that have landed, and only then is a request
+  done.
 * **streaming** and **warmup** as in the reference.
 
 The server keeps its tensors on ``torch_device``, ``"cuda"`` unless the
@@ -43,6 +53,7 @@ against, as in the reference.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import contextlib
 import dataclasses
 import time
@@ -63,7 +74,8 @@ from repro_torch.engine.policies import stencil_rowchunk
 from repro_torch.engine.schedule import build_schedule, effective_depth
 from repro_torch.interop import grid_from_numpy
 from repro_torch.obs import metrics as _metrics
-from repro_torch.obs.trace import get_tracer, span as _obs_span, use_tracer
+from repro_torch.obs.trace import (begin as _obs_begin, get_tracer,
+                                   span as _obs_span, use_tracer)
 
 
 class SolveRejected(ValueError):
@@ -163,6 +175,9 @@ class _Bucket:
         self.queue: collections.deque[SolveRequest] = collections.deque()
         self.slots: list[SolveRequest | None] = []
         self.us: torch.Tensor | None = None
+        #: The staging pool's free buffers; ``staging`` counts those made.
+        self.free: list[torch.Tensor] = []
+        self.staging = 0
         self.launches = 0
         self.evicted_early = 0
         self.completed = 0
@@ -180,6 +195,11 @@ class _Bucket:
     @property
     def active(self) -> int:
         return sum(r is not None for r in self.slots)
+
+    @property
+    def spent(self) -> bool:
+        """No staging buffer is free, and no more may be made."""
+        return not self.free and self.staging >= self.max_slots
 
     @property
     def busy(self) -> bool:
@@ -203,19 +223,19 @@ def _tol_f32(tol: float) -> np.float32:
     return t32
 
 
-def _host(u: torch.Tensor) -> torch.Tensor:
-    """A host copy of ``u`` that later writes to the slots cannot reach
-    (on the CPU, ``.cpu()`` would return ``u`` itself)."""
-    return u.to("cpu", copy=True)
+@dataclasses.dataclass(eq=False)
+class _Copy:
+    """A finished request's result on its way to the host: its lane
+    staged in ``buf`` of its bucket's pool, and ``job``, the copy thread's
+    :func:`_landed` of it. ``span`` is its ``serve.result_copy``, begun
+    with the copy. Copies compare by identity."""
 
-
-def _result_copy(req: SolveRequest, u: torch.Tensor) -> torch.Tensor:
-    """:func:`_host` of a request's result, under a ``serve.result_copy``
-    span. On the card the copy waits for the stream's queued kernels
-    first, so the span holds that wait and the copy."""
-    with _obs_span("serve.result_copy", request=req.id,
-                   bytes=u.nbytes):
-        return _host(u)
+    bucket: _Bucket
+    req: SolveRequest
+    converged: bool
+    buf: torch.Tensor
+    job: concurrent.futures.Future
+    span: object
 
 
 def _to_device(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
@@ -226,20 +246,48 @@ def _to_device(x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     return x.pin_memory().to(dev, non_blocking=True)
 
 
+def _host(u: torch.Tensor) -> torch.Tensor:
+    """A CPU copy of the host tensor ``u`` that later writes to ``u``
+    cannot reach, neither pinned nor a pool buffer: the staged route's
+    last step (on the CPU, ``.cpu()`` would return ``u`` itself)."""
+    return u.to("cpu", copy=True)
+
+
+def _landed(buf: torch.Tensor, ev) -> torch.Tensor:
+    """The staged copy in ``buf`` once its event has passed, as a tensor
+    of its own (:func:`_host`)."""
+    if ev is not None:
+        ev.synchronize()
+    return _host(buf)
+
+
+def _host_buffer(x: torch.Tensor) -> torch.Tensor:
+    """An empty host tensor like ``x``: pinned when ``x`` is on the card."""
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=x.is_cuda)
+
+
+def _copy_out(xs, host):
+    """Copy each of ``xs`` into its buffer of ``host``; returns the event
+    to wait on before reading them. On CUDA the copies into pinned
+    memory do not block the host; on the CPU they are done (no event)."""
+    for h, x in zip(host, xs):
+        h.copy_(x, non_blocking=True)
+    if not xs[0].is_cuda:
+        return None
+    ev = torch.cuda.Event()
+    ev.record()
+    return ev
+
+
 def _readback(xs, dev: torch.device):
     """Start copying ``xs`` to the host; returns (host tensors, event).
 
-    On CUDA the copies land in pinned memory, non-blocking, behind an
-    event the caller waits on before reading them."""
+    On CUDA the copies land in fresh pinned memory (:func:`_copy_out`);
+    on the CPU the tensors are their own host copies."""
     if dev.type != "cuda":
         return list(xs), None
-    host = [torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-            for x in xs]
-    for h, x in zip(host, xs):
-        h.copy_(x, non_blocking=True)
-    ev = torch.cuda.Event()
-    ev.record()
-    return host, ev
+    host = [_host_buffer(x) for x in xs]
+    return host, _copy_out(xs, host)
 
 
 def _residuals(vs: torch.Tensor, key: BucketKey,
@@ -330,6 +378,9 @@ class SolveServer:
         self.tracer = tracer
         self._buckets: dict[BucketKey, _Bucket] = {}
         self._completed: list[SolveRequest] = []
+        self._copies: list[_Copy] = []
+        self._copier = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="serve.result_copy")
         self._admitted = 0
         self.warmed: dict[tuple, str] = {}
 
@@ -479,7 +530,60 @@ class SolveServer:
     def _evict(self, bucket: _Bucket, i: int, converged: bool) -> None:
         req = bucket.slots[i]
         bucket.slots[i] = None           # the slot is free immediately
-        self._finish(bucket, req, _result_copy(req, bucket.us[i]), converged)
+        self._stage_result(bucket, req, bucket.us[i], converged)
+
+    def _stage(self, bucket: _Bucket, u: torch.Tensor):
+        """Start copying ``u`` into a free buffer of the bucket's staging
+        pool, made on first use, ``max_slots`` at most; returns (buffer,
+        event). With none free, the bucket's oldest pending copy is
+        finished first."""
+        if bucket.spent:
+            self._finish_copy(next(c for c in self._copies
+                                   if c.bucket is bucket))
+        if bucket.free:
+            buf = bucket.free.pop()
+        else:
+            buf = _host_buffer(u)
+            bucket.staging += 1
+        return buf, _copy_out([u], [buf])
+
+    def _host_now(self, bucket: _Bucket, u: torch.Tensor) -> torch.Tensor:
+        """``u`` on the host at once, through the pool (a streamed
+        iterate, which its callback needs now)."""
+        buf, ev = self._stage(bucket, u)
+        out = _landed(buf, ev)
+        bucket.free.append(buf)
+        return out
+
+    def _stage_result(self, bucket: _Bucket, req: SolveRequest,
+                      u: torch.Tensor, converged: bool) -> None:
+        """Start a finished request's result copy, under a
+        ``serve.result_copy`` span that ends with the result on the host
+        (:meth:`_finish_copies`). Counts ``serve.result_copy.staged``,
+        and ``serve.result_copy.pool_waits`` when the pool has no free
+        buffer."""
+        sp = _obs_begin("serve.result_copy", request=req.id, bytes=u.nbytes)
+        if bucket.spent:
+            _metrics.counter("serve.result_copy.pool_waits").inc()
+        buf, ev = self._stage(bucket, u)
+        _metrics.counter("serve.result_copy.staged").inc()
+        job = self._copier.submit(_landed, buf, ev)
+        self._copies.append(_Copy(bucket, req, converged, buf, job, sp))
+
+    def _finish_copy(self, c: _Copy) -> None:
+        """Wait for a pending copy, free its buffer, finish its request."""
+        result = c.job.result()
+        self._copies.remove(c)
+        c.bucket.free.append(c.buf)
+        c.span.end()
+        self._finish(c.bucket, c.req, result, c.converged)
+
+    def _finish_copies(self, wait: bool) -> None:
+        """Finish the pending copies that have landed, oldest first; with
+        ``wait``, every one."""
+        for c in list(self._copies):
+            if wait or c.job.done():
+                self._finish_copy(c)
 
     def _finish(self, bucket: _Bucket, req: SolveRequest,
                 result: torch.Tensor, converged: bool) -> None:
@@ -496,15 +600,19 @@ class SolveServer:
         """Advance every busy bucket by one superblock (up to
         ``superblock`` blocks of its cadence ``t``).
 
-        Returns the number of launches performed (0 = fully drained); a
-        launch is one superblock of a bucket, or one lone request's
-        ``run_converged``. Slots freed by eviction are refilled from the
-        bucket queue before the next superblock. Every busy bucket's
-        superblock is queued first, each with a non-blocking readback of
-        its history, and only then are the histories replayed, so one
-        bucket's replay overlaps the next bucket's kernels. Each launch
-        runs under a ``serve.block`` span (``requests``: the ids in its
-        slots), each finished request's host copy under a
+        Returns the number of launches performed (0 = nothing left to
+        launch); a launch is one superblock of a bucket, or one lone
+        request's ``run_converged``. Slots freed by eviction are refilled
+        from the bucket queue before the next superblock. Every busy
+        bucket's superblock is queued first, each with a non-blocking
+        readback of its history, and only then are the histories
+        replayed, so one bucket's replay overlaps the next bucket's
+        kernels. The step ends by finishing the result copies that have
+        landed (all of them when it launched nothing): a request is done
+        in the step that evicts it or in a later one, its result on the
+        host. Each launch runs under a ``serve.block`` span
+        (``requests``: the ids in its slots), each finished request's
+        copy, from its start to the result on the host, under a
         ``serve.result_copy`` span, and each launch adds a sample of
         active slots and queue to the ``serve.slots`` counter track and
         its evictions to the ``serve.evictions`` counter.
@@ -537,6 +645,8 @@ class SolveServer:
                 self._replay(bucket, k, out, sp)
             finally:
                 cm.__exit__(None, None, None)
+        # With nothing launched, the copies are all that is left to wait on.
+        self._finish_copies(wait=not launches)
         return launches
 
     def _step_lone(self, bucket: _Bucket) -> int:
@@ -571,7 +681,7 @@ class SolveServer:
             converged = req.tol is not None and req.residual <= req.tol
             if i is not None:
                 bucket.slots[i] = None   # lane is stale; refills overwrite
-            self._finish(bucket, req, _result_copy(req, v), converged)
+            self._stage_result(bucket, req, v, converged)
             sp.set(max_residual=req.residual, evicted=1)
         _metrics.counter("serve.evictions").inc(1)
         self._slots_sample(bucket)
@@ -640,8 +750,8 @@ class SolveServer:
                 req.residual = float(hres[j, i])
                 max_residual = max(max_residual, req.residual)
                 if req.stream is not None:
-                    iterate = (_host(bucket.us[i]) if req.stream_iterates
-                               else None)
+                    iterate = (self._host_now(bucket, bucket.us[i])
+                               if req.stream_iterates else None)
                     req.stream(req, SolveProgress(req.iters_done,
                                                   req.residual, iterate))
             converged = bool(conv_arr[i])
@@ -661,10 +771,14 @@ class SolveServer:
 
     @property
     def busy(self) -> bool:
-        return any(b.busy for b in self._buckets.values())
+        """Work left: a request queued or in a slot, or a result still on
+        its way to the host."""
+        return bool(self._copies) or any(b.busy
+                                         for b in self._buckets.values())
 
     def drain(self, max_launches: int = 1_000_000) -> list[SolveRequest]:
-        """Step until every admitted request has completed."""
+        """Step until every admitted request has completed, its result on
+        the host."""
         while self.busy:
             if max_launches <= 0:
                 raise RuntimeError("drain exceeded its launch budget")

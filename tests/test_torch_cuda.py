@@ -973,6 +973,92 @@ def test_served_readback_is_pinned_and_waited_on(cuda, monkeypatch):
                for _, ev in seen)
 
 
+def _card_request(cuda, left, tol, max_iters):
+    from repro_torch.serve import SolveRequest
+    return SolveRequest(grid=TS.make_laplace_problem(40, 300, left=left,
+                                                     device=cuda),
+                        tol=tol, max_iters=max_iters, policy="temporal", t=8)
+
+
+def _host_result_is_solo(r):
+    assert r.done and r.result.device.type == "cpu"
+    assert r.result.dtype == r.grid.dtype and not r.result.is_pinned()
+    assert torch.equal(r.result, TE.run(r.grid, policy="temporal",
+                                        iters=r.iters_done, t=8).cpu())
+
+
+def test_served_results_through_a_spent_staging_pool(cuda, monkeypatch):
+    """Four slots: one step's four evictions hold the pool of four (their
+    copies held back on the copy thread) when a lone request finishes in
+    the next step, which first finishes the oldest copy; then mixed
+    tolerances through the same pool. Every result is its solo run bit
+    for bit, a CPU tensor of the grid's dtype, not pinned; one staged
+    copy a completed request."""
+    import threading
+    from repro_torch.obs import metrics as TM
+    from repro_torch.serve import SolveServer
+    from repro_torch.serve import solve as SS
+    gate = threading.Event()
+    host = SS._host
+
+    def held(u):
+        assert gate.wait(timeout=60)
+        return host(u)
+    monkeypatch.setattr(SS, "_host", held)
+    waits = TM.counter("serve.result_copy.pool_waits").value
+    staged = TM.counter("serve.result_copy.staged").value
+    quick = [_card_request(cuda, 1.0 - 0.1 * i, tol, 8)
+             for i, tol in enumerate((None, 1e30, None, 1e30))]
+    u0 = TS.make_laplace_problem(40, 300, left=0.5, device=cuda)
+    lone = _card_request(cuda, 0.5, _solo_tol(u0, "temporal", 11)[0], 400)
+    srv = SolveServer(max_slots=4, superblock=1)
+    for r in quick + [lone]:
+        srv.submit(r)
+    try:
+        srv.step()
+        assert srv.busy and not any(r.done for r in quick)
+    finally:
+        gate.set()
+    srv.drain()
+    assert TM.counter("serve.result_copy.pool_waits").value == waits + 1
+    mixed = []
+    for i, target in enumerate((5, 9, None, 13, 3, 7)):
+        left = 0.9 - 0.1 * i
+        u0 = TS.make_laplace_problem(40, 300, left=left, device=cuda)
+        tol = None if target is None else _solo_tol(u0, "temporal",
+                                                    target)[0]
+        mixed.append(_card_request(cuda, left, tol, 8 * 20))
+    srv.solve(mixed)
+    reqs = quick + [lone] + mixed
+    assert lone.iters_done > 8 and len({r.iters_done for r in mixed}) > 2
+    for r in reqs:
+        _host_result_is_solo(r)
+    assert srv.stats()["completed"] == len(reqs)
+    assert TM.counter("serve.result_copy.staged").value == \
+        staged + len(reqs)
+    (bucket,) = srv._buckets.values()
+    assert bucket.staging == 4 and len(bucket.free) == 4
+    assert all(b.is_pinned() for b in bucket.free)
+
+
+def test_an_early_result_outlives_its_staging_buffer(cuda):
+    """A result taken early is its own tensor: six later requests through
+    the same two-buffer pool leave it as it was."""
+    from repro_torch.serve import SolveServer
+    srv = SolveServer(max_slots=2)
+    (first,) = srv.solve([_card_request(cuda, 1.0, None, 16)])
+    kept = first.result.clone()
+    later = srv.solve([_card_request(cuda, 0.1 * i, None, 8 * (i + 1))
+                       for i in range(6)])
+    bucket = srv._buckets[first.key]
+    assert bucket.staging == 2
+    assert first.result.data_ptr() not in {b.data_ptr()
+                                           for b in bucket.free}
+    assert torch.equal(first.result, kept)
+    for r in [first] + later:
+        _host_result_is_solo(r)
+
+
 def test_solve_server_lone_request_on_the_card(cuda):
     from repro_torch.serve import SolveRequest, SolveServer
     req = SolveRequest(grid=TS.make_laplace_problem(40, 300, device=cuda),

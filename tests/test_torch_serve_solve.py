@@ -365,3 +365,142 @@ def test_lane_residuals_through_a_sweep_equal_residual(spec, dtype):
     assert got.dtype == torch.float32 and got.shape == (3,)
     assert torch.equal(got, want)
     assert torch.equal(TSolve._residuals(vs, key, None), want)
+
+
+def _staged_traffic(case, seen):
+    """Port requests for the result-copy tests: ``batched`` mixes
+    tolerances over two slots, ``lone`` takes the bypass, ``iterates``
+    streams its iterates beside a batched request."""
+    kws = {"batched": [dict(tol=5e-2, max_iters=96),
+                       dict(tol=2.5e-2, max_iters=96),
+                       dict(tol=None, max_iters=24),
+                       dict(tol=4e-2, max_iters=96)],
+           "lone": [dict(tol=3e-2, max_iters=96)],
+           "iterates": [dict(tol=None, max_iters=32, stream_iterates=True,
+                             stream=lambda r, p: seen.append(p)),
+                        dict(tol=5e-2, max_iters=96)]}[case]
+    return [SolveRequest(grid=grid_from_numpy(
+        _problem(16, 16, seed=7, scale=1.0 / (j + 1)), device="cpu"),
+        policy="temporal", t=8, **kw) for j, kw in enumerate(kws)]
+
+
+def _solo(req):
+    return TE.run(req.grid, req.spec, policy=req.key.policy,
+                  iters=req.iters_done, t=req.key.t)
+
+
+@pytest.mark.parametrize("case", ["batched", "lone", "iterates"])
+def test_a_request_is_done_only_with_its_result_on_the_host(case):
+    """Stepped by hand: after every step no request is done without its
+    result, and the server is busy exactly while a request is not done
+    (queued, in a slot, or its copy pending). Each result is a CPU tensor
+    of its own, its solo run bit for bit, copied once through a pool of
+    at most ``max_slots`` buffers; ``solve()`` returns the same results
+    filled in."""
+    staged = TM.counter("serve.result_copy.staged").value
+    seen = []
+    srv = SolveServer(max_slots=2, superblock=2, torch_device="cpu")
+    reqs = [srv.submit(r) for r in _staged_traffic(case, seen)]
+    for _ in range(100):
+        if not srv.busy:
+            break
+        srv.step()
+        for r in reqs:
+            assert not r.done or r.result is not None
+        assert srv.busy == (not all(r.done for r in reqs))
+    assert not srv.busy
+    assert TM.counter("serve.result_copy.staged").value == \
+        staged + len(reqs)
+    (bucket,) = srv._buckets.values()
+    assert 0 < bucket.staging <= srv.max_slots
+    assert len(bucket.free) == bucket.staging
+    pool = {b.data_ptr() for b in bucket.free}
+    for r in reqs:
+        assert r.result.device.type == "cpu"
+        assert r.result.dtype == r.grid.dtype
+        assert r.result.data_ptr() not in pool
+        assert torch.equal(r.result, _solo(r))
+    again = SolveServer(max_slots=2, superblock=2,
+                        torch_device="cpu").solve(_staged_traffic(case, []))
+    for a, r in zip(again, reqs):
+        assert a.done and torch.equal(a.result, r.result)
+    if case == "lone":
+        assert srv.stats()["launches"] == 1
+    if case == "iterates":
+        assert [p.iters_done for p in seen] == [8, 16, 24, 32]
+        for p in seen:
+            assert p.iterate.data_ptr() not in pool
+            assert torch.equal(p.iterate, TE.run(
+                reqs[0].grid, reqs[0].spec, policy="temporal",
+                iters=p.iters_done, t=8))
+        assert len({p.iterate.data_ptr() for p in seen}) == len(seen)
+
+
+@pytest.mark.parametrize("others", [0, 2])
+def test_a_lone_eviction_behind_a_spent_pool_finishes_the_oldest_copy(
+        monkeypatch, others):
+    """Four lanes evicted in one step hold the whole pool of four while
+    their copies have not landed (the copy thread is held back); the lone
+    request finishing in the next step first finishes the oldest of them,
+    its own bucket's oldest where ``others`` requests of another bucket
+    were evicted before them. Every result is still its solo run bit for
+    bit, staged once."""
+    import threading
+    gate = threading.Event()
+    host = TSolve._host
+
+    def held(u):
+        assert gate.wait(timeout=60)
+        return host(u)
+    monkeypatch.setattr(TSolve, "_host", held)
+    waits = TM.counter("serve.result_copy.pool_waits").value
+    staged = TM.counter("serve.result_copy.staged").value
+    quick = [SolveRequest(grid=grid_from_numpy(
+        _problem(16, 16, seed=s), device="cpu"), tol=tol, max_iters=8,
+        policy="temporal", t=8)
+        for s, tol in ((1, None), (2, 1e30), (3, None), (4, 1e30))]
+    lone = SolveRequest(grid=grid_from_numpy(_problem(16, 16), device="cpu"),
+                        tol=3e-3, max_iters=96, policy="temporal", t=8)
+    before = [SolveRequest(grid=grid_from_numpy(
+        _problem(12, 20, seed=s), device="cpu"), tol=None, max_iters=8,
+        policy="temporal", t=8) for s in range(others)]
+    srv = SolveServer(max_slots=4, superblock=1, torch_device="cpu")
+    for r in before + quick + [lone]:
+        srv.submit(r)
+    try:
+        assert srv.step() == 1 + bool(others)
+        assert srv.busy and not any(r.done for r in before + quick)
+        assert [r.iters_done for r in quick] == [8] * 4
+    finally:
+        gate.set()
+    srv.drain()
+    assert TM.counter("serve.result_copy.pool_waits").value == waits + 1
+    assert TM.counter("serve.result_copy.staged").value == \
+        staged + 5 + others
+    assert lone.iters_done > 8
+    assert srv.stats()["launches"] == 2 + bool(others)
+    assert srv._buckets[lone.key].staging == 4
+    for r in before + quick + [lone]:
+        assert r.done and torch.equal(r.result, _solo(r))
+
+
+def test_results_stay_exact_with_the_copy_thread_switched_often():
+    """Twenty-four requests on four slots, the interpreter switching
+    threads every microsecond: every result is its solo run bit for bit
+    and a tensor of its own, though each staging buffer served many."""
+    import sys
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        reqs = [SolveRequest(grid=grid_from_numpy(
+            _problem(16, 16, seed=j), device="cpu"),
+            tol=(None, 5e-2, 2e-2, 1e-2)[j % 4], max_iters=8 * (1 + j % 5),
+            policy="temporal", t=8) for j in range(24)]
+        srv = SolveServer(max_slots=4, superblock=2, torch_device="cpu")
+        srv.solve(reqs)
+    finally:
+        sys.setswitchinterval(interval)
+    assert srv._buckets[reqs[0].key].staging <= 4
+    assert len({r.result.data_ptr() for r in reqs}) == len(reqs)
+    for r in reqs:
+        assert r.done and torch.equal(r.result, _solo(r))

@@ -135,6 +135,28 @@ def test_request_ids_follow_each_request_across_the_serve_spans():
                 "serve.max_residual"} & set(TM.snapshot()["gauges"])
 
 
+def test_a_begun_span_keeps_the_path_it_began_under():
+    """``begin`` ... ``end``: the span takes the path open when it began,
+    its time runs to ``end``, and spans opened and closed meanwhile do
+    not nest in it; with no tracer it is the shared no-op."""
+    assert TO.begin("serve.result_copy", request=1) is TO.NULL_SPAN
+    tracer = TO.Tracer()
+    with TO.use_tracer(tracer):
+        with TO.span("serve.block"):
+            copy = TO.begin("serve.result_copy", request=3, bytes=8)
+        with TO.span("serve.block"):
+            pass
+        copy.end()
+    first, second, copy = tracer.events
+    assert [e.name for e in tracer.events] == ["serve.block", "serve.block",
+                                               "serve.result_copy"]
+    assert copy.path == ("serve.block", "serve.result_copy")
+    assert second.path == ("serve.block",)
+    assert copy.attrs == {"request": 3, "bytes": 8}
+    assert first.ts_us <= copy.ts_us <= first.ts_us + first.dur_us
+    assert copy.ts_us + copy.dur_us >= second.ts_us + second.dur_us
+
+
 def test_a_rejected_request_gets_no_id():
     srv = SolveServer(torch_device="cpu")
     bad = SolveRequest(grid=_grid(), max_iters=0)
