@@ -36,9 +36,11 @@
 // ships (offsets as constants), which the wrappers pick by the spec's
 // offsets.
 //
-// C interface: one extern "C" launcher per kernel, returning cudaError_t
-// (the launch's cudaGetLastError()). Built by repro_torch/kernels/build.py
-// with nvcc -gencode arch=compute_90a,code=sm_90a and loaded with ctypes.
+// C interface: one extern "C" launcher per policy, returning cudaError_t
+// (the launch's cudaGetLastError()); K1's picks its kernel from the
+// geometry, the mask and t, and repro_temporal_chain enqueues a schedule's
+// K1 blocks in one call. Built by repro_torch/kernels/build.py with nvcc
+// -gencode arch=compute_90a,code=sm_90a and loaded with ctypes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,10 +136,12 @@ __device__ __forceinline__ Tile tile_at(int ty, int tx, int H, int W, int r,
 // wrappers pick it by an exact, ordered match of the spec's offsets
 // (repro_torch/engine/plan.py::TEMPORAL_GEOMETRIES), and every other spec
 // runs the general form. Offsets in tap order, as the Python table lists
-// them.
+// them. PIPE marks those K1's register pipeline is compiled for
+// (plan.py::TEMPORAL_PIPELINE).
 // ---------------------------------------------------------------------------
 struct Jacobi5 {
   static constexpr int N = 4;
+  static constexpr bool PIPE = true;
   __host__ __device__ static constexpr int dy(int k) {
     constexpr int a[N] = {-1, 1, 0, 0};
     return a[k];
@@ -149,6 +153,7 @@ struct Jacobi5 {
 };
 struct Laplace9 {
   static constexpr int N = 8;
+  static constexpr bool PIPE = false;
   __host__ __device__ static constexpr int dy(int k) {
     constexpr int a[N] = {-1, -1, -1, 0, 0, 1, 1, 1};
     return a[k];
@@ -160,6 +165,7 @@ struct Laplace9 {
 };
 struct Radius2 {
   static constexpr int N = 5;
+  static constexpr bool PIPE = true;
   __host__ __device__ static constexpr int dy(int k) {
     constexpr int a[N] = {-2, -1, 0, 0, 0};
     return a[k];
@@ -785,49 +791,21 @@ __global__ void __launch_bounds__(THREADS)
 // time (weights stay run-time arguments). The wrapper picks a geometry by
 // an exact, ordered match of the spec's offsets
 // (repro_torch/engine/plan.py::TEMPORAL_GEOMETRIES); every other spec runs
-// temporal_kernel above. Both compute the same f32 operations in the same
-// order.
+// temporal_kernel above. An unmasked plan of LEVELS sweeps on a geometry
+// marked PIPE runs temporal_pipe_kernel, every other one
+// temporal_geo_kernel. All three compute the same f32 operations in the
+// same order.
 //
-// What held the general kernel at 16x its byte bound on an H100 was issued
-// instructions, not bytes: per cell-update four scalar shared loads at
-// run-time offsets plus a store, a pin test rebuilt from coordinates, and
-// two-level index arithmetic. Here:
-//   * A tile row in shared memory is 128 f32 cells: one warp of 4-column
-//     quads spans it (the tile is bn + 2*t*r <= 128 columns wide). Each
-//     thread owns one quad and walks down a run of rows, reading each row
-//     once as one 16-byte load and keeping the rows the taps reach in
-//     registers; the columns left and right of its quad come from the
-//     neighbouring lanes by warp shuffles. One shared load and one shared
-//     store a quad a sweep, where the general kernel makes 5 a cell.
-//   * Registers cannot be indexed by run-time offsets, so each geometry is
-//     a type whose offsets are constants: taps, register slots and shuffles
-//     unroll away.
-//   * A block whose window lies inside the ring-free interior runs a loop
-//     with no pin test (PIN_NONE). Edge blocks test a row once and a
-//     thread's four columns once (PIN_RING); a masked run reads the pin
-//     byte of its quad as one 4-byte word (PIN_MASK). Pinned cells are
-//     never written, so they keep their input in both tiles.
-//   * The tile is loaded and stored a quad a lane: one 16-byte (f32) or
-//     8-byte (bf16) access where the quad's address is aligned, else
-//     element by element. The odd pitch 9218 aligns no quad of a tile;
-//     cutting each quad from the two aligned vectors around it measured
-//     12% slower at t = 8 (PERF.md), so it was not kept.
-// Shared memory: two f32 tiles of (bm + 2tr) x 128 cells, plus one byte a
-// cell when masked: 57,344 bytes at the default 40 x 112 tile and t*r = 8
-// (64,512 masked; radius 2: 73,728). 256 threads; __launch_bounds__(256, 4)
-// keeps four blocks an SM. nvcc -Xptxas -v (CUDA 12.9, sm_90a), registers
-// unmasked / masked, the same in f32 and bf16, no stack, no spills:
-// Jacobi5 53 / 52, Laplace9 61 / 56, Radius2 56 / 56.
-// On an H100 (PERF.md) the 5-point kernel takes 0.072 ms at 1026 x 9218,
-// bf16, t = 8, against 0.185 for temporal_kernel: about 26 us of tile load
-// and store plus 5.7 us a sweep. A sweep is bound by issue: 44
-// instructions a warp-row of 128 cells, 28 of them the unfused f32 taps,
-// over 1.38x the grid's cells (the halo the tile recomputes).
+// Registers cannot be indexed by run-time offsets, so each geometry is a
+// type whose offsets are constants: taps, register slots and shuffles
+// unroll away. A thread owns one 4-column quad of a 128-cell row (a warp
+// spans it); the columns left and right of its quad come from the
+// neighbouring lanes by warp shuffles. Grid quads are read and written one
+// 16-byte (f32) or 8-byte (bf16) access where the quad's address is
+// aligned, else element by element: the odd pitch 9218 aligns no quad.
 // ---------------------------------------------------------------------------
-#define QUADS 32           // 4-column quads a tile row holds: one warp
-#define TROW (4 * QUADS)   // f32 cells a row of the shared-memory tile
-
-enum { PIN_NONE = 0, PIN_RING = 1, PIN_MASK = 2 };
+#define QUADS 32           // 4-column quads a warp's row holds
+#define TROW (4 * QUADS)   // cells a row of a warp's strip (or tile) holds
 
 __device__ __forceinline__ void lds_quad(const float* s, float (&q)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(s);
@@ -892,6 +870,314 @@ __device__ __forceinline__ void stg_quad(T* __restrict__ out, int g, int c,
   for (int j = 0; j < 4; ++j)
     if (j < n) p[j] = from_f32<T>(q[j]);
 }
+
+// ---------------------------------------------------------------------------
+// K1 unmasked on a compiled geometry at t = LEVELS: a register pipeline
+// across sweeps.
+//
+// What bounds it on an H100 is issue slots. A 5-point sweep is 4 FMUL and 3
+// FADD a cell (no FMA, for exactness) and an SM issues one warp
+// instruction a clock on each of its four schedulers, so the 75.5 M
+// cell-sweeps of a launch at 1026 x 9218, t = 8, need 15.8 us at the
+// 1.98 GHz it runs at with nothing else issued; the bytes (the grid read
+// once, its interior written once) need 11.3 us in bf16 and 22.6 in f32
+// from HBM, and the paper's bf16 grid pair sits in the 50 MB L2. The
+// shared-memory design (temporal_geo_kernel) loads a window 1.6x its
+// output, computes 1.34x the useful cells, stops at a block barrier every
+// sweep, and fits three blocks an SM.
+//
+// Design: each warp owns one column strip of TROW cells, bn of them its
+// output with LEVELS*r columns of halo either side, and one segment of bm
+// rows. It marches down the rows. At every step a grid row enters level 0,
+// and each level k = 1..LEVELS computes one row from the last NW rows of
+// level k-1 (NW = the rows the taps span, 3 for every shipped geometry),
+// kept in registers; level LEVELS's row is rounded once and stored. A grid
+// row so
+// passes through every sweep as a diagonal wavefront, and one row is
+// written a row advanced. No shared memory and no barrier. The window's
+// overhead is the strip's halo columns (128 / 112 at t = 8) plus the
+// segment's LEVELS*r warm-up rows above and below, whose warm-up steps
+// skip the
+// levels that hold no valid row yet. Registers: LEVELS x NW quads (96
+// floats); __launch_bounds__(32, 14) has ptxas fit the kernel in 128
+// registers without spilling, 16 warps an SM.
+//
+// What it took on the card (PERF.md, PR 36): the compiler wraps every
+// shuffle in a reconvergence sequence (WARPSYNC) unless it can prove the
+// warp converged, so a block is one warp, every branch is on values from
+// blockIdx and the arguments, and per-lane conditions are predicates. A
+// load's result must not be touched until it is used NW steps later (a
+// select or a widening right behind it stalls every step on the L2), so
+// grid cells are loaded raw by inline PTX and widened at use.
+//
+// Pins: a warp whose computed cells meet no ring cell takes a path with no
+// test. Edge warps keep, where a cell is pinned, the middle tap of the
+// level below, which for a pinned cell is its input: ring rows and ring
+// columns. Rows and columns outside the grid read zero and are pinned:
+// they only ever neighbour ring cells.
+//
+// Where it runs (PERF.md, PR 36): only at t = LEVELS, and for the
+// geometries marked PIPE. At t = 1 and 3 it took longer than
+// temporal_geo_kernel (its per-cell loads and stores are paid for once a
+// row whatever t), and cutting its levels at t made ptxas spill the whole
+// kernel; the 9-point stencil at t = 8 ran no faster than there. It still
+// takes any t up to LEVELS (its pin path carries the levels past t
+// through): with t folded into a constant the bf16 5-point kernel ran 5%
+// slower.
+// ---------------------------------------------------------------------------
+#define LEVELS 8  // sweeps a warp carries in registers: its t
+
+// One level's new row for the thread's quad: the taps summed in tap order
+// (no FMA) over rows x[i] = level k-1's row a + DYMIN + i, which sit in
+// ring slots (PH + i) % NW of `src`.
+template <typename G, int PH>
+__device__ __forceinline__ void pipe_level(
+    const float (&src)[Geo<G>::NW][4], float (&acc)[4], const Taps& tp) {
+  using P = Geo<G>;
+  constexpr int NW = P::NW, HR = P::HR;
+  float x[NW][4 + 2 * HR];
+  static_for<NW>([&](auto ic) {
+    constexpr int i = decltype(ic)::value;
+    constexpr int slot = (PH + i) % NW;
+    constexpr int dy = P::DYMIN + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) x[i][HR + j] = src[slot][j];
+    static_for<P::left(dy)>([&](auto mc) {
+      constexpr int m = decltype(mc)::value;  // column -1 - m
+      x[i][HR - 1 - m] = __shfl_up_sync(FULL_MASK, src[slot][3 - m], 1);
+    });
+    static_for<P::right(dy)>([&](auto mc) {
+      constexpr int m = decltype(mc)::value;  // column 4 + m
+      x[i][HR + 4 + m] = __shfl_down_sync(FULL_MASK, src[slot][m], 1);
+    });
+  });
+  static_for<G::N>([&](auto kc) {
+    constexpr int k = decltype(kc)::value;
+    constexpr int i = G::dy(k) - P::DYMIN, c = HR + G::dx(k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float term = __fmul_rn(x[i][c + j], tp.w[k]);
+      if constexpr (k == 0)
+        acc[j] = term;
+      else
+        acc[j] = __fadd_rn(acc[j], term);
+    }
+  });
+}
+
+// A grid cell as loaded: the f32 value, or a bf16's bits in the low half
+// of the word (widen() makes them f32). The loaded register is touched by
+// nothing until its consumer NW steps later, so the load's latency stalls
+// no step; `ok` false loads nothing and gives zero.
+__device__ __forceinline__ float ldg_raw(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float ldg_raw(const __nv_bfloat16* p) {
+  unsigned b;
+  asm volatile("ld.global.nc.u16 %0, [%1];" : "=r"(b) : "l"(p));
+  return __uint_as_float(b);
+}
+__device__ __forceinline__ float ldg_raw(const float* p, bool ok) {
+  float v;
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n mov.b32 %0, 0;\n"
+      " @q ld.global.nc.f32 %0, [%1];\n}"
+      : "=f"(v) : "l"(p), "r"((unsigned)ok));
+  return v;
+}
+__device__ __forceinline__ float ldg_raw(const __nv_bfloat16* p, bool ok) {
+  unsigned b;
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %2, 0;\n mov.b32 %0, 0;\n"
+      " @q ld.global.nc.u16 %0, [%1];\n}"
+      : "=r"(b) : "l"(p), "r"((unsigned)ok));
+  return __uint_as_float(b);
+}
+template <typename T>
+__device__ __forceinline__ float widen(float raw) {
+  if constexpr (std::is_same<T, float>::value)
+    return raw;
+  else
+    return __uint_as_float(__float_as_uint(raw) << 16);  // exact
+}
+
+// A warp's segment: rows [R0, R0 + rows) of its strip, the thread's quad
+// at column c. Step s reads grid row gs + s into level 0 and level k
+// computes row gs + s - k*D1; level LEVELS's rows from step s0 on are the
+// output. Ring slot s % NW of each level holds the row of step s. Every
+// branch here is on values the whole warp shares (a block is one warp,
+// and every value comes from blockIdx and the arguments), and per-lane
+// conditions are predicates, so the warp stays converged and the shuffles
+// need no reconvergence.
+//   EDGE: the pin path (see above), its loads and stores tested cell by
+//     cell. Without it (the pin-free path) every cell loaded is inside the
+//     grid (a row past the last is clamped to it: no level needs it) and a
+//     lane stores its whole quad or none of it.
+//   WARM: skip the levels with no valid row yet (the pin-free path's first
+//     steps: level k has one from step k*(D0 + D1) on, level LEVELS from
+//     s0 on, so its stores need no test).
+//   GUARD: stop at nsteps.
+template <typename G>
+struct Pipe {
+  using P = Geo<G>;
+  static constexpr int NW = P::NW, D0 = -P::DYMIN, D1 = P::DYMAX;
+  float win[LEVELS][NW][4];  // win[k]: the last NW rows of level k
+  float pf[NW][4];           // grid rows in flight: slot s % NW, step s + NW
+  int gs, s0, nsteps;
+
+  template <typename T, bool EDGE>
+  __device__ __forceinline__ void load(const T* __restrict__ u, int g, int c,
+                                       int H, int W, float (&q)[4]) {
+    if constexpr (EDGE) {
+      const bool row = g >= 0 && g < H;
+      const T* p = u + (size_t)(row ? g : 0) * W + c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = ldg_raw(p + j, row && c + j >= 0 && c + j < W);
+    } else {
+      const T* p = u + (size_t)min(g, H - 1) * W + c;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q[j] = ldg_raw(p + j);
+    }
+  }
+
+  template <typename T, bool EDGE, bool WARM, bool GUARD>
+  __device__ __forceinline__ void steps(
+      const T* __restrict__ u, T* __restrict__ out, int s, int H, int W,
+      int r, int t, int c, unsigned store, unsigned col_pins,
+      const Taps& tp) {
+    static_for<NW>([&](auto pc) {
+      constexpr int p = decltype(pc)::value;  // s % NW == 0
+      const int sp = s + p;
+      if (GUARD && sp >= nsteps) return;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) win[0][p][j] = widen<T>(pf[p][j]);
+      load<T, EDGE>(u, gs + sp + NW, c, H, W, pf[p]);
+      static_for<LEVELS>([&](auto kc) {
+        constexpr int k = decltype(kc)::value + 1;
+        if (WARM && sp < k * (D0 + D1)) return;
+        float acc[4];
+        pipe_level<G, (p + 1) % NW>(win[k - 1], acc, tp);
+        if constexpr (EDGE) {
+          constexpr int mid = (p + 1 + D0) % NW;  // tap row dy = 0
+          const int a = gs + sp - k * D1;
+          const bool keep = k > t || a < r || a >= H - r;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            acc[j] = keep || (col_pins >> j & 1u) ? win[k - 1][mid][j]
+                                                   : acc[j];
+        }
+        if constexpr (k < LEVELS) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) win[k][p][j] = acc[j];
+        } else if (!EDGE || sp >= s0) {
+          T* o = out + (size_t)(gs + sp - LEVELS * D1) * W + c;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (store >> (EDGE ? j : 0) & 1u) o[j] = from_f32<T>(acc[j]);
+        }
+      });
+    });
+  }
+};
+
+// One warp a block: blockIdx.x is the strip, blockIdx.y the segment.
+template <typename T, typename G>
+__global__ void __launch_bounds__(32, 14)
+    temporal_pipe_kernel(const T* __restrict__ u, T* __restrict__ out,
+                         int H, int W, int r, int t, int bm, int bn,
+                         Taps tp) {
+  const int lane = threadIdx.x;
+  const size_t plane = (size_t)H * W;
+  u += blockIdx.z * plane;
+  out += blockIdx.z * plane;
+  const Tile tl = tile_at(blockIdx.y, blockIdx.x, H, W, r, bm, bn);
+  using Q = Pipe<G>;
+  constexpr int NW = Q::NW, D0 = Q::D0, D1 = Q::D1;
+  Q q;
+  q.gs = tl.R0 - t * D0;
+  q.s0 = t * D0 + LEVELS * D1;
+  q.nsteps = q.s0 + tl.rows;
+  const int c0 = tl.C0 - t * r;  // the strip's first column
+  const int c = c0 + 4 * lane;
+  unsigned store = 0, col_pins = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    store |= (unsigned)(c + j >= tl.C0 && c + j < tl.C0 + tl.cols) << j;
+    col_pins |= (unsigned)(c + j < r || c + j >= W - r) << j;
+  }
+#pragma unroll
+  for (int k = 0; k < LEVELS; ++k)
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q.win[k][i][j] = 0.0f;
+
+  // Every computed row and column clear of the ring, no level past t, and
+  // the tile's columns whole quads of the strip: no pin test, and a lane
+  // stores all of its quad or none. Level 1 computes rows gs + D0 ..
+  // R0 + rows - 1 + (t-1)*D1.
+  const bool pin_free = t == LEVELS && q.gs + D0 >= r &&
+                        tl.R0 + tl.rows + (t - 1) * D1 <= H - r && c0 >= r &&
+                        c0 + TROW <= W - r && (t * r) % 4 == 0 &&
+                        tl.cols % 4 == 0;
+  if (pin_free) {
+    // The first and the last steps share one body (warm-up skips, and a
+    // guard): a level past its warm-up is never skipped there.
+    constexpr int warm = (LEVELS * (D0 + D1) + NW - 1) / NW * NW;
+    const unsigned whole = store == 15u;
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+      q.template load<T, false>(u, q.gs + i, c, H, W, q.pf[i]);
+    int s = 0;
+    for (; s < warm; s += NW)
+      q.template steps<T, false, true, true>(u, out, s, H, W, r, t, c, whole,
+                                             0u, tp);
+    for (; s + NW <= q.nsteps; s += NW)
+      q.template steps<T, false, false, false>(u, out, s, H, W, r, t, c,
+                                               whole, 0u, tp);
+    if (s < q.nsteps)
+      q.template steps<T, false, true, true>(u, out, s, H, W, r, t, c, whole,
+                                             0u, tp);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NW; ++i)
+      q.template load<T, true>(u, q.gs + i, c, H, W, q.pf[i]);
+    for (int s = 0; s < q.nsteps; s += NW)
+      q.template steps<T, true, false, true>(u, out, s, H, W, r, t, c, store,
+                                             col_pins, tp);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1 on a compiled geometry from shared memory: masked plans
+// (run_distributed's shards), and unmasked ones deeper than the register
+// pipeline's LEVELS sweeps. The tile is two f32 ping-pong copies in shared
+// memory; a block barrier ends each sweep.
+//   * A tile row in shared memory is 128 f32 cells: one warp of 4-column
+//     quads spans it (the tile is bn + 2*t*r <= 128 columns wide). Each
+//     thread owns one quad and walks down a run of rows, reading each row
+//     once as one 16-byte load and keeping the rows the taps reach in
+//     registers; the columns left and right of its quad come from the
+//     neighbouring lanes by warp shuffles. One shared load and one shared
+//     store a quad a sweep, where the general kernel makes 5 a cell.
+//   * A block whose window lies inside the ring-free interior runs a loop
+//     with no pin test (PIN_NONE). Edge blocks test a row once and a
+//     thread's four columns once (PIN_RING); a masked run reads the pin
+//     byte of its quad as one 4-byte word (PIN_MASK). Pinned cells are
+//     never written, so they keep their input in both tiles.
+// Shared memory: two f32 tiles of (bm + 2tr) x 128 cells, plus one byte a
+// cell when masked: 57,344 bytes at the default 40 x 112 tile and t*r = 8
+// (64,512 masked; radius 2: 73,728). 256 threads; __launch_bounds__(256, 4)
+// keeps four blocks an SM. nvcc -Xptxas -v (CUDA 12.9, sm_90a), registers
+// unmasked / masked, the same in f32 and bf16, no stack, no spills:
+// Jacobi5 53 / 52, Laplace9 61 / 56, Radius2 56 / 56.
+// On an H100 (PERF.md) the 5-point masked kernel takes 0.114784 ms at
+// 1026 x 9218, bf16, t = 8.
+// ---------------------------------------------------------------------------
+enum { PIN_NONE = 0, PIN_RING = 1, PIN_MASK = 2 };
 
 // One row of one sweep for the thread's quad: start the read of row
 // `row + 1 + DYMAX` (the next row's new tap row) into the spare register
@@ -1278,67 +1564,124 @@ extern "C" cudaError_t repro_dbuf(const void* u, void* out, int geometry,
   });
 }
 
-extern "C" cudaError_t repro_temporal(const void* u, const void* mask,
-                                      void* out, int dtype, int batch, int H,
-                                      int W, int r, int t, int bm, int bn,
-                                      int row_tiles, int col_tiles, int taps,
-                                      const int* dy, const int* dx,
-                                      const float* w, int smem,
-                                      void* stream) {
-  if (t < 1) return cudaErrorInvalidValue;
-  const Taps tp = make_taps(taps, dy, dx, w);
-  return dispatch(dtype, taps, [&](auto type, auto nt) {
-    using T = typename decltype(type)::type;
-    constexpr int NT = decltype(nt)::value;
-    auto kernel = mask != nullptr ? temporal_kernel<T, NT, true>
-                                  : temporal_kernel<T, NT, false>;
-    cudaError_t e = allow_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<dim3(col_tiles, row_tiles, batch), THREADS, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(u), static_cast<const uint8_t*>(mask),
-        static_cast<T*>(out), H, W, r, t, bm, bn, tp);
-    return cudaGetLastError();
-  });
-}
-
-// K1 on a compiled geometry: 0 = Jacobi5, 1 = Laplace9, 2 = Radius2 (the
-// order of repro_torch/engine/plan.py::TEMPORAL_GEOMETRIES). Refuses a tap
-// count or radius that is not the geometry's, and a tile wider than a row.
-extern "C" cudaError_t repro_temporal_geo(const void* u, const void* mask,
-                                          void* out, int geometry, int dtype,
-                                          int batch, int H, int W, int r,
-                                          int t, int bm, int bn,
-                                          int row_tiles, int col_tiles,
-                                          int taps, const float* w, int smem,
-                                          void* stream) {
-  if (t < 1 || bm < 1 || bn < 1 || bn + 2 * t * r > TROW ||
-      (dtype != 0 && dtype != 1) || taps < 1 || taps > MAX_TAPS)
+// K1's kernel for a plan, resolved once: the general kernel (geometry -1)
+// or a compiled geometry (0 = Jacobi5, 1 = Laplace9, 2 = Radius2, the
+// order of repro_torch/engine/plan.py::TEMPORAL_GEOMETRIES): through the
+// register pipeline when unmasked at t = LEVELS on a PIPE geometry, else
+// from shared memory. Sets the kernel's shared memory once (none for the
+// pipeline) and calls body(launch), where launch(in, out) enqueues one K1
+// on `stream` and returns its cudaGetLastError().
+// Refuses a geometry whose offsets, tap count or radius are not the
+// spec's, and a tile wider than a row of its kernel.
+template <typename Body>
+static cudaError_t with_temporal(const void* mask, int geometry, int dtype,
+                                 int batch, int H, int W, int r, int t,
+                                 int bm, int bn, int row_tiles,
+                                 int col_tiles, const Taps& tp, int smem,
+                                 void* stream, Body body) {
+  if (t < 1 || bm < 1 || bn < 1 || tp.n < 1 || tp.n > MAX_TAPS ||
+      (dtype != 0 && dtype != 1))
     return cudaErrorInvalidValue;
-  const Taps tp = make_taps(taps, nullptr, nullptr, w);  // weights only
-  auto run = [&](auto type, auto geo) -> cudaError_t {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* mk = static_cast<const uint8_t*>(mask);
+  const dim3 tiles(col_tiles, row_tiles, batch);
+  auto by_type = [&](auto type) -> cudaError_t {
     using T = typename decltype(type)::type;
-    using G = typename decltype(geo)::type;
-    if (taps != G::N || r != Geo<G>::R) return cudaErrorInvalidValue;
-    auto kernel = mask != nullptr ? temporal_geo_kernel<T, G, true>
-                                  : temporal_geo_kernel<T, G, false>;
-    cudaError_t e = allow_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<dim3(col_tiles, row_tiles, batch), THREADS, smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(u), static_cast<const uint8_t*>(mask),
-        static_cast<T*>(out), H, W, r, t, bm, bn, tp);
-    return cudaGetLastError();
-  };
-  auto by_geo = [&](auto type) -> cudaError_t {
+    auto geo = [&](auto g) -> cudaError_t {
+      using G = typename decltype(g)::type;
+      if (!same_offsets<G>(tp) || r != Geo<G>::R || bn + 2 * t * r > TROW)
+        return cudaErrorInvalidValue;
+      if constexpr (G::PIPE) {
+        if (mask == nullptr && t == LEVELS)
+          return body([&](const void* in, void* out) {
+            temporal_pipe_kernel<T, G><<<tiles, 32, 0, st>>>(
+                static_cast<const T*>(in), static_cast<T*>(out), H, W, r, t,
+                bm, bn, tp);
+            return cudaGetLastError();
+          });
+      }
+      auto kernel = mask != nullptr ? temporal_geo_kernel<T, G, true>
+                                    : temporal_geo_kernel<T, G, false>;
+      cudaError_t e = allow_smem(kernel, smem);
+      if (e != cudaSuccess) return e;
+      return body([&](const void* in, void* out) {
+        kernel<<<tiles, THREADS, smem, st>>>(static_cast<const T*>(in), mk,
+                                             static_cast<T*>(out), H, W, r, t,
+                                             bm, bn, tp);
+        return cudaGetLastError();
+      });
+    };
     switch (geometry) {
-      case 0: return run(type, Type<Jacobi5>{});
-      case 1: return run(type, Type<Laplace9>{});
-      case 2: return run(type, Type<Radius2>{});
+      case -1: break;
+      case 0: return geo(Type<Jacobi5>{});
+      case 1: return geo(Type<Laplace9>{});
+      case 2: return geo(Type<Radius2>{});
       default: return cudaErrorInvalidValue;
     }
+    auto general = [&](auto nt) -> cudaError_t {
+      constexpr int NT = decltype(nt)::value;
+      auto kernel = mask != nullptr ? temporal_kernel<T, NT, true>
+                                    : temporal_kernel<T, NT, false>;
+      cudaError_t e = allow_smem(kernel, smem);
+      if (e != cudaSuccess) return e;
+      return body([&](const void* in, void* out) {
+        kernel<<<tiles, THREADS, smem, st>>>(static_cast<const T*>(in), mk,
+                                             static_cast<T*>(out), H, W, r, t,
+                                             bm, bn, tp);
+        return cudaGetLastError();
+      });
+    };
+    if (tp.n <= 4) return general(std::integral_constant<int, 4>{});
+    if (tp.n <= 8) return general(std::integral_constant<int, 8>{});
+    if (tp.n <= 16) return general(std::integral_constant<int, 16>{});
+    return general(std::integral_constant<int, MAX_TAPS>{});
   };
-  return dtype == 0 ? by_geo(Type<float>{}) : by_geo(Type<__nv_bfloat16>{});
+  return dtype == 0 ? by_type(Type<float>{}) : by_type(Type<__nv_bfloat16>{});
+}
+
+// One K1 launch, u -> out; `mask` (one byte a cell, nonzero = pinned) or
+// null.
+extern "C" cudaError_t repro_temporal(const void* u, const void* mask,
+                                      void* out, int geometry, int dtype,
+                                      int batch, int H, int W, int r, int t,
+                                      int bm, int bn, int row_tiles,
+                                      int col_tiles, int taps, const int* dy,
+                                      const int* dx, const float* w, int smem,
+                                      void* stream) {
+  if (taps < 1 || taps > MAX_TAPS) return cudaErrorInvalidValue;
+  const Taps tp = make_taps(taps, dy, dx, w);
+  return with_temporal(mask, geometry, dtype, batch, H, W, r, t, bm, bn,
+                       row_tiles, col_tiles, tp, smem, stream,
+                       [&](auto launch) { return launch(u, out); });
+}
+
+// A schedule's `launches` unmasked K1 blocks in one call, enqueued back to
+// back on `stream`: the first reads u and writes buf_a, each next one reads
+// the last one's output and writes the other of buf_a and buf_b (buf_b may
+// be u itself, or null for one launch), as engine/dispatch.py's loop
+// ping-pongs. Returns the first launch error.
+extern "C" cudaError_t repro_temporal_chain(
+    const void* u, void* buf_a, void* buf_b, int launches, int geometry,
+    int dtype, int batch, int H, int W, int r, int t, int bm, int bn,
+    int row_tiles, int col_tiles, int taps, const int* dy, const int* dx,
+    const float* w, int smem, void* stream) {
+  if (launches < 1 || taps < 1 || taps > MAX_TAPS || buf_a == nullptr ||
+      buf_a == u || buf_a == buf_b || (launches > 1 && buf_b == nullptr))
+    return cudaErrorInvalidValue;
+  const Taps tp = make_taps(taps, dy, dx, w);
+  return with_temporal(nullptr, geometry, dtype, batch, H, W, r, t, bm, bn,
+                       row_tiles, col_tiles, tp, smem, stream,
+                       [&](auto launch) {
+    const void* src = u;
+    void* dst = buf_a;
+    for (int i = 0; i < launches; ++i) {
+      const cudaError_t e = launch(src, dst);
+      if (e != cudaSuccess) return e;
+      src = dst;
+      dst = dst == buf_a ? buf_b : buf_a;
+    }
+    return cudaSuccess;
+  });
 }
 
 extern "C" cudaError_t repro_shifted(const void* const* srcs, void* out,

@@ -8,9 +8,10 @@ cache in :mod:`repro_torch.engine.tune`), build the
 :class:`~repro_torch.engine.schedule.SweepSchedule`, and execute it as
 kernel launches.
 
-On a CUDA tensor a schedule runs as a Python loop of launches between two
-ping-pong buffers whose rings are set once per run; on a CPU tensor the
-same loop runs the plain versions. ``policy="reference"`` runs the plain
+On a CUDA tensor a schedule runs between two ping-pong buffers whose rings
+are set once per run: its fused blocks enqueued by one library call, its
+remainder as wrapper calls; on a CPU tensor a loop of wrapper calls runs
+the plain versions. ``policy="reference"`` runs the plain
 oracle ``apply_stencil`` on either device.
 """
 from __future__ import annotations
@@ -187,12 +188,15 @@ def _execute_schedule(u: torch.Tensor, sched: SweepSchedule,
 
     On a CUDA tensor the launches ping-pong between two buffers whose
     rings are copied from ``u`` once; ``donate=True`` makes ``u`` itself
-    the second buffer (the caller's tensor is then clobbered).
+    the second buffer (the caller's tensor is then clobbered). The fused
+    blocks go to the library in one call
+    (:func:`~repro_torch.engine.policies.launch_chain`, its plan resolved
+    once); the remainder launches one wrapper call each.
 
-    The loop of wrapper calls runs under one ``engine.launches`` span
-    whose ``launches`` attr counts them: its duration is the host's time
-    for the whole loop, and its start, less the enclosing span's, the
-    prologue before it. Nothing is timed per launch.
+    The launches run under one ``engine.launches`` span whose
+    ``launches`` attr counts them: its duration is the host's time for
+    all of them, and its start, less the enclosing span's, the prologue
+    before it. Nothing is timed per launch.
     """
     if sched.policy == "reference":
         for _ in range(sched.iters):
@@ -209,8 +213,14 @@ def _execute_schedule(u: torch.Tensor, sched: SweepSchedule,
     buf_b = u if donate else (_ringed_like(u, r) if len(calls) > 1
                               else None)
     src, dst = u, buf_a
+    chained = sched.fused_blocks if sched.fused else 0
     with _obs_span("engine.launches", launches=len(calls)):
-        for fn, kw in calls:
+        if chained:
+            plan = plan_for(u.shape[-2:], u.dtype, spec, sched.policy, bm=bm,
+                            t=sched.t, device=device)
+            src = P.launch_chain(plan, u, buf_a, buf_b, chained)
+            dst = buf_b if src is buf_a else buf_a
+        for fn, kw in calls[chained:]:
             fn(src, spec, bm=bm, device=device, out=dst, **kw)
             src, dst = dst, (buf_b if dst is buf_a else buf_a)
     return src

@@ -38,9 +38,14 @@ DEFAULT_T = 8      # temporal fusion depth (sweeps per HBM round-trip)
 #: Default (bm, bn) output tile of the 2-D plan, per policy: the fastest
 #: tile of ``python -m repro_torch.launch.tiles`` on an H100 at 1026 x 9218
 #: (see PERF.md). ``shifted`` streams without a tile; its tile only counts
-#: blocks for ``auto``.
+#: blocks for ``auto``. ``temporal``'s is the register pipeline's (a
+#: warp's segment of rows and its strip's output columns; see
+#: :func:`register_pipeline`).
 GPU_TILES = {"shifted": (32, 128), "rowchunk": (8, 1016),
-             "dbuf": (16, 504), "temporal": (40, 112)}
+             "dbuf": (16, 504), "temporal": (41, 112)}
+#: Default tile of the K1 kernels that run from shared memory: every plan
+#: but the register pipeline's.
+GPU_TILE_TEMPORAL_SMEM = (40, 112)
 #: Most taps a CUDA kernel takes (the tap table is a kernel argument).
 MAX_TAPS = 32
 #: Tap geometries K1, K2 and K3 are compiled for (``csrc/stencil.cu``:
@@ -54,9 +59,17 @@ TEMPORAL_GEOMETRIES = {
                  (1, 0), (1, 1)),
     "radius2": ((-2, 0), (-1, 0), (0, 0), (0, -2), (0, 1)),
 }
-#: f32 cells a row of the compiled K1's shared-memory tile holds (one warp
-#: of 4-column quads): its window, ``bn + 2·t·r``, must fit in it.
+#: Cells a row of a compiled K1 geometry holds (one warp of 4-column
+#: quads): a warp's strip in the register pipeline, or a row of the
+#: shared-memory kernel's tile. Its window, ``bn + 2·t·r``, must fit in it.
 TEMPORAL_ROW = 128
+#: Sweeps the register pipeline carries: the one ``t`` it takes
+#: (``csrc/stencil.cu``: ``LEVELS``).
+TEMPORAL_LEVELS = 8
+#: Geometries the register pipeline is compiled for (``csrc/stencil.cu``:
+#: ``PIPE``). The 9-point one ran no faster there than from shared memory
+#: (PERF.md).
+TEMPORAL_PIPELINE = ("jacobi5", "radius2")
 #: Bytes of slack before and after each row of a K2/K3 window in shared
 #: memory (``csrc/stencil.cu``: ``WIN_LEAD``, ``WIN_TAIL``).
 WINDOW_LEAD, WINDOW_TAIL = 16, 32
@@ -136,6 +149,16 @@ def temporal_variant(spec: StencilSpec) -> str:
     return "general"
 
 
+def register_pipeline(spec: StencilSpec, t: int, masked: bool) -> bool:
+    """Whether K1 runs as the register pipeline (``csrc/stencil.cu``:
+    ``temporal_pipe_kernel``): unmasked, ``t`` equal to
+    :data:`TEMPORAL_LEVELS`, a geometry of :data:`TEMPORAL_PIPELINE`.
+    Every other K1 plan runs from shared memory, which was as fast or
+    faster there (PERF.md)."""
+    return (not masked and t == TEMPORAL_LEVELS
+            and temporal_variant(spec) in TEMPORAL_PIPELINE)
+
+
 def smem_2d(policy: str, dtype_bytes: int, spec: StencilSpec, bm: int,
             bn: int, t: int, masked: bool = False) -> tuple[int, int]:
     """(halo, shared-memory bytes) of one 2-D tile of ``policy``.
@@ -145,7 +168,7 @@ def smem_2d(policy: str, dtype_bytes: int, spec: StencilSpec, bm: int,
     grid dtype (rowchunk), :data:`DBUF_STAGES` of them behind their
     mbarriers (dbuf), or two f32 tiles (temporal). A compiled K1
     geometry's tiles have rows of :data:`TEMPORAL_ROW` cells whatever
-    ``bn``.
+    ``bn``; the register pipeline takes none.
     """
     r = spec.radius
     if policy == "shifted":
@@ -157,6 +180,8 @@ def smem_2d(policy: str, dtype_bytes: int, spec: StencilSpec, bm: int,
     if policy == "dbuf":
         return r, DBUF_BARS + DBUF_STAGES * window
     if policy == "temporal":
+        if register_pipeline(spec, t, masked):
+            return t * r, 0
         # Two f32 ping-pong tiles; a masked run adds one byte per cell.
         width = (TEMPORAL_ROW if temporal_variant(spec) != "general"
                  else bn + 2 * t * r)
@@ -327,7 +352,8 @@ def plan_for(shape, dtype, spec: StencilSpec, policy: str, *,
     Under the row-block rule ``bm`` snaps to the largest interior-row
     divisor and ``bn`` is the interior width; under the 2-D rule both are
     clipped to the interior and default to :data:`GPU_TILES` (K2's and
-    K3's ``bn`` then halved by :func:`sweep_bn` for a tall ``bm``); a
+    K3's ``bn`` then halved by :func:`sweep_bn` for a tall ``bm``; a K1
+    that runs from shared memory to :data:`GPU_TILE_TEMPORAL_SMEM`); a
     compiled K1 geometry also clips ``bn`` to ``TEMPORAL_ROW - 2·t·r``.
     ``t`` is forced to 1 for non-temporal policies. ``device`` is a
     registry name or model; None plans against
@@ -336,6 +362,8 @@ def plan_for(shape, dtype, spec: StencilSpec, policy: str, *,
     dev = get_device(device)
     t_eff = (t if t is not None else DEFAULT_T) if policy == "temporal" else 1
     tile = GPU_TILES.get(policy, GPU_TILES["rowchunk"])
+    if policy == "temporal" and not register_pipeline(spec, t_eff, masked):
+        tile = GPU_TILE_TEMPORAL_SMEM
     if bm is None:
         bm = tile[0] if tiles_2d(dev) else DEFAULT_BM
     if bn is None:

@@ -27,8 +27,10 @@ Launch parameters come from :func:`~repro_torch.engine.plan.plan_for`.
 Every wrapper takes ``out=``: a buffer of the grid's shape, distinct from
 ``u``, whose ring already equals ``u``'s; the kernel overwrites its
 interior. ``engine.run`` passes its ping-pong buffers this way so that the
-ring is copied once per run, not once per launch. :data:`LAUNCHES` counts
-the kernel launches of each policy (never the plain versions).
+ring is copied once per run, not once per launch, and hands a schedule's
+fused K1 blocks to the library in one call (:func:`launch_chain`).
+:data:`LAUNCHES` counts the kernel launches of each policy (never the
+plain versions).
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from repro_torch.engine.device import DeviceModel  # noqa: F401
 from repro_torch.engine.plan import (DEFAULT_T, TEMPORAL_GEOMETRIES,
                                      ExecutionPlan, PlanError, plan_for,
                                      temporal_variant, window_pitch)
+from repro_torch.obs import metrics as _metrics
 
 #: Kernel launches per policy since the last :func:`reset_launch_counts`.
 LAUNCHES: dict[str, int] = {"shifted": 0, "rowchunk": 0, "dbuf": 0,
@@ -165,9 +168,13 @@ def _on_cpu(u: torch.Tensor) -> bool:
     return False
 
 
-def _cuda_out(u: torch.Tensor, out: torch.Tensor | None, plan: ExecutionPlan
-              ) -> torch.Tensor:
-    """Check ``u`` for the kernels and return the output buffer."""
+def _check_grid(u: torch.Tensor, plan: ExecutionPlan) -> None:
+    """Check that ``u`` is a grid ``plan`` was made for, and one the
+    kernels take."""
+    if tuple(u.shape[-2:]) != plan.shape or u.dtype != getattr(
+            torch, plan.dtype):
+        raise ValueError(f"plan is for {plan.shape} {plan.dtype}; grid is "
+                         f"{tuple(u.shape)} {u.dtype}")
     if u.dtype not in _DTYPE_CODE:
         raise TypeError(f"the CUDA kernels take float32 or bfloat16; got "
                         f"{u.dtype}")
@@ -177,6 +184,12 @@ def _cuda_out(u: torch.Tensor, out: torch.Tensor | None, plan: ExecutionPlan
         raise PlanError(f"a CUDA tensor needs a 2-D tile plan; "
                         f"{plan.device.name} plans row blocks (pass "
                         f"device='gpu_sm90' or None)")
+
+
+def _cuda_out(u: torch.Tensor, out: torch.Tensor | None, plan: ExecutionPlan
+              ) -> torch.Tensor:
+    """The output buffer for ``u`` (checked by :func:`_check_grid`):
+    ``out``, checked, or a new one with ``u``'s ring."""
     if out is None:
         out = torch.empty_like(u)
         copy_ring(u, out, plan.radius)
@@ -192,12 +205,14 @@ def _batch_hw(u: torch.Tensor) -> tuple[int, int, int]:
     return math.prod(u.shape[:-2]), u.shape[-2], u.shape[-1]
 
 
-def _checked(name: str, err: int, variant: str | None = None) -> None:
+def _checked(name: str, err: int, variant: str | None = None,
+             n: int = 1) -> None:
+    """Raise on a launcher's error, else count its ``n`` launches."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += n
     if variant is not None:
-        _VARIANTS[name][variant] += 1
+        _VARIANTS[name][variant] += n
 
 
 def _lib():
@@ -300,8 +315,19 @@ def _launch_dbuf(plan: ExecutionPlan, u, out, mask) -> None:
     _checked("dbuf", err, variant)
 
 
-def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
+def _temporal_args(plan: ExecutionPlan, u: torch.Tensor) -> tuple:
+    """K1's launcher arguments after its operands: the geometry code (-1
+    for the general kernel), the grid, the plan's tile, the taps and the
+    shared memory."""
     b, h, w = _batch_hw(u)
+    n, dy, dx, wts = _tap_args(plan.spec)
+    return (_GEOMETRY_CODE.get(temporal_variant(plan.spec), -1),
+            _DTYPE_CODE[u.dtype], b, h, w, plan.radius, plan.t, plan.bm,
+            plan.bn, plan.row_tiles, plan.col_tiles, n, dy, dx, wts,
+            plan.vmem_bytes)
+
+
+def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
     mask_ptr = None
     if mask is not None:
         # The kernel reads one byte a cell (nonzero = pinned) over the
@@ -314,22 +340,40 @@ def _launch_temporal(plan: ExecutionPlan, u, out, mask) -> None:
                 and mask.is_contiguous()):
             mask = (mask != 0).to(torch.uint8).expand(u.shape).contiguous()
         mask_ptr = mask.data_ptr()
-    n, dy, dx, wts = _tap_args(plan.spec)
-    variant = temporal_variant(plan.spec)
     with _on_card(u, out, mask) as stream:
-        if variant == "general":
-            err = _lib().repro_temporal(
-                u.data_ptr(), mask_ptr, out.data_ptr(), _DTYPE_CODE[u.dtype],
-                b, h, w, plan.radius, plan.t, plan.bm, plan.bn,
-                plan.row_tiles, plan.col_tiles, n, dy, dx, wts,
-                plan.vmem_bytes, stream)
-        else:
-            err = _lib().repro_temporal_geo(
-                u.data_ptr(), mask_ptr, out.data_ptr(),
-                _GEOMETRY_CODE[variant], _DTYPE_CODE[u.dtype], b, h, w,
-                plan.radius, plan.t, plan.bm, plan.bn, plan.row_tiles,
-                plan.col_tiles, n, wts, plan.vmem_bytes, stream)
-    _checked("temporal", err, variant)
+        err = _lib().repro_temporal(u.data_ptr(), mask_ptr, out.data_ptr(),
+                                    *_temporal_args(plan, u), stream)
+    _checked("temporal", err, temporal_variant(plan.spec))
+
+
+def launch_chain(plan: ExecutionPlan, u: torch.Tensor, buf_a: torch.Tensor,
+                 buf_b: torch.Tensor | None, launches: int) -> torch.Tensor:
+    """Enqueue ``launches`` unmasked K1 blocks of ``plan`` in one call: the
+    first reads ``u`` and writes ``buf_a``, each next one reads the last
+    one's output and writes the other of ``buf_a`` and ``buf_b``
+    (``buf_b`` may be ``u``, or None for one launch). Returns the last
+    output. Each launch counts in :data:`LAUNCHES`, under its variant and
+    in the ``engine.launches.chained`` counter."""
+    bufs = [buf_a] if buf_b is None else [buf_a, buf_b]
+    if plan.policy != "temporal" or plan.masked or launches < 1 or (
+            buf_b is None and launches > 1):
+        raise ValueError(f"a chain takes {launches} unmasked temporal "
+                         f"launches over {len(bufs)} buffers; got "
+                         f"{plan.describe()}")
+    if buf_b is not None and buf_b.data_ptr() == buf_a.data_ptr():
+        raise ValueError("buf_a and buf_b must be distinct buffers")
+    _check_grid(u, plan)
+    for buf in bufs:
+        if buf is not u:  # buf_b may be u: a donated grid
+            _cuda_out(u, buf, plan)
+    with _on_card(u, *bufs) as stream:
+        err = _lib().repro_temporal_chain(
+            u.data_ptr(), buf_a.data_ptr(),
+            None if buf_b is None else buf_b.data_ptr(), launches,
+            *_temporal_args(plan, u), stream)
+    _checked("temporal", err, temporal_variant(plan.spec), launches)
+    _metrics.counter("engine.launches.chained").inc(launches)
+    return bufs[(launches - 1) % 2]
 
 
 _LAUNCHERS = {"shifted": _launch_shifted, "rowchunk": _launch_rowchunk,
@@ -345,10 +389,7 @@ def launch(plan: ExecutionPlan, u: torch.Tensor, *,
     wrappers below make one; a tile sweep passes its own). ``mask`` is
     for a masked temporal plan only.
     """
-    if tuple(u.shape[-2:]) != plan.shape or u.dtype != getattr(
-            torch, plan.dtype):
-        raise ValueError(f"plan is for {plan.shape} {plan.dtype}; grid is "
-                         f"{tuple(u.shape)} {u.dtype}")
+    _check_grid(u, plan)
     if (mask is not None) != plan.masked:
         raise ValueError("pass a mask exactly when the plan is masked")
     out = _cuda_out(u, out, plan)

@@ -170,10 +170,8 @@ SIGNATURES = {
     "stencil": {
         "repro_rowchunk": [P, P, *[I] * 12, IP, IP, F, I, P],
         "repro_dbuf": [P, P, *[I] * 13, IP, IP, F, I, P],
-        "repro_temporal": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, IP, IP,
-                           F, I, P],
-        "repro_temporal_geo": [P, P, P, I, I, I, I, I, I, I, I, I, I, I, I,
-                               F, I, P],
+        "repro_temporal": [P, P, P, *[I] * 12, IP, IP, F, I, P],
+        "repro_temporal_chain": [P, P, P, *[I] * 13, IP, IP, F, I, P],
         "repro_shifted": [ctypes.POINTER(P), P, I, I, I, I, I, I, I, I, F,
                           P],
     },

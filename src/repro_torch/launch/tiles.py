@@ -2,8 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.tiles --dtype bfloat16
 
-For each policy with a shared-memory tile (rowchunk, dbuf, temporal) and
-each tile that fits the ``gpu_sm90`` budget, prints the plan, the
+For each policy with a tile (rowchunk, dbuf, temporal) and each tile
+that fits the ``gpu_sm90`` budget, prints the plan, the
 kernel's device time on the paper's 1026 x 9218 grid (5-point Jacobi),
 warm (calls back to back on one grid) and cold (the calls rotate over
 grids of three times the L2: ``launch.sweep_ab.cold_ms``), and the rate
@@ -18,7 +18,7 @@ import torch
 
 TILES = [(16, 128), (32, 128), (64, 128), (128, 128), (16, 256), (32, 256),
          (64, 256), (32, 64), (64, 64), (24, 112), (32, 112), (40, 112),
-         (48, 112), (56, 112), (64, 112), (32, 96), (64, 96), (8, 504),
+         (41, 112), (48, 112), (56, 112), (57, 112), (64, 112), (32, 96), (64, 96), (8, 504),
          (16, 504), (32, 504), (8, 1016), (16, 1016), (4, 2040), (8, 2040)]
 
 

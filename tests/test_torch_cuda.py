@@ -142,6 +142,113 @@ def test_temporal_other_tap_order_takes_the_general_kernel(cuda, dtype):
     assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=8))
 
 
+def _paper_shape(spec):
+    """The paper's 1024 x 9216 interior with the spec's ring."""
+    return (1024 + 2 * spec.radius, 9216 + 2 * spec.radius)
+
+
+@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("batch", [None, 3])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", ["paper", (37, 301), (130, 1030)])
+@pytest.mark.parametrize("spec_name", list(SPECS))
+def test_register_pipeline_k1_equals_plain_bitwise(cuda, spec_name, shape,
+                                                   dtype, batch, t):
+    """The unmasked compiled K1 at the paper's shape and ragged ones, a
+    batch along gridDim.z, and t 1, 3 and 8, on the route its plan picks
+    (the register pipeline at t 8 for jacobi5 and radius2, else shared
+    memory): the plain version bit for bit."""
+    from repro_torch.engine.plan import register_pipeline
+    spec = SPECS[spec_name]
+    shape = _paper_shape(spec) if shape == "paper" else shape
+    u = _grid(shape, dtype, cuda, seed=11 + t, batch=batch)
+    plan = TE.plan_for(shape, dtype, spec, "temporal", t=t)
+    assert (plan.vmem_bytes == 0) == register_pipeline(spec, t, False)
+    before = _counts()
+    got = TE.stencil_temporal(u, spec, t=t)
+    torch.cuda.synchronize()
+    _assert_one_k1(before, spec_name)
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=t))
+
+
+@pytest.mark.parametrize("t", [8, 16])
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_one_call_chain_equals_plain_blocks(cuda, dtype, donate, t):
+    """An engine.run of eight t-deep blocks at the paper's shape enqueues
+    them in one library call (t 16: the shared-memory kernel), and equals
+    eight plain t-deep blocks."""
+    from repro_torch.obs import metrics
+    spec = SPECS["jacobi5"]
+    u = _grid(_paper_shape(spec), dtype, cuda, seed=12)
+    want = u
+    for _ in range(8):
+        want = TE.stencil_temporal_plain(want, spec, t=t)
+    before = _counts()
+    chained = metrics.counter("engine.launches.chained").value
+    got = TE.run(u.clone(), spec, policy="temporal", iters=8 * t, t=t,
+                 donate=donate)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _counts()[0]["temporal"] == before[0]["temporal"] + 8
+    assert _counts()[1]["jacobi5"] == before[1]["jacobi5"] + 8
+    assert metrics.counter("engine.launches.chained").value == chained + 8
+
+
+@pytest.mark.parametrize("shape", ["paper", (37, 301), (130, 1030)])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("spec_name,t", [
+    ("jacobi5", 16), ("jacobi5", 20), ("radius2", 12), ("laplace9", 63)])
+def test_deep_unmasked_k1_equals_plain_bitwise(cuda, spec_name, t, dtype,
+                                               shape):
+    """An unmasked compiled geometry deeper than the register pipeline's
+    TEMPORAL_LEVELS runs from shared memory: the plain version bit for
+    bit, up to the deepest t a tile row holds."""
+    spec = SPECS[spec_name]
+    shape = _paper_shape(spec) if shape == "paper" else shape
+    u = _grid(shape, dtype, cuda, seed=14 + t)
+    plan = TE.plan_for(shape, dtype, spec, "temporal", t=t)
+    assert plan.vmem_bytes > 0 and not plan.masked
+    before = _counts()
+    got = TE.stencil_temporal(u, spec, t=t)
+    torch.cuda.synchronize()
+    _assert_one_k1(before, spec_name)
+    assert torch.equal(got, TE.stencil_temporal_plain(u, spec, t=t))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k1_route_is_chosen_by_the_plan(cuda, dtype):
+    """An unmasked plan of TEMPORAL_LEVELS sweeps on jacobi5 or radius2
+    runs the register pipeline; another t, the 9-point geometry and a
+    masked plan the shared-memory kernel; another tap order the general
+    kernel: the kernels' names in a profile of one launch each."""
+    from torch.profiler import ProfilerActivity, profile
+    j5 = SPECS["jacobi5"]
+    u = _grid((133, 259), dtype, cuda, seed=13)
+    mask = torch.zeros(u.shape, dtype=torch.bool, device=cuda)
+    mask[40:60, 100:150] = True
+    other = TS.StencilSpec(j5.offsets[::-1], j5.weights)
+    r2 = SPECS["radius2"]
+    u2 = _grid((134, 261), dtype, cuda, seed=13)
+    runs = [("temporal_pipe_kernel", lambda: TE.stencil_temporal(u, j5, t=8)),
+            ("temporal_pipe_kernel", lambda: TE.stencil_temporal(u2, r2, t=8)),
+            ("temporal_geo_kernel",
+             lambda: TE.stencil_temporal(u, j5, t=8, mask=mask)),
+            ("temporal_geo_kernel", lambda: TE.stencil_temporal(u, j5, t=3)),
+            ("temporal_geo_kernel", lambda: TE.stencil_temporal(u, j5, t=16)),
+            ("temporal_geo_kernel",
+             lambda: TE.stencil_temporal(u, SPECS["laplace9"], t=8)),
+            ("temporal_kernel", lambda: TE.stencil_temporal(u, other, t=8))]
+    for name, run in runs:
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        ran = [e.key for e in prof.key_averages() if "temporal" in e.key]
+        assert len(ran) == 1 and f"{name}<" in ran[0], (name, ran)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("spec_name", list(SPECS))
 def test_shifted_views_launch_equals_the_policy_call(cuda, spec_name, dtype):

@@ -6,6 +6,7 @@ Schedules equal the reference's field for field; ``run``,
 ``cpu_ref``), and the port's own contracts (a batch lane equals its solo
 run, donation changes nothing) hold bit for bit.
 """
+import contextlib
 import dataclasses
 import warnings
 
@@ -19,7 +20,7 @@ from repro.core import stencil as JS
 from repro_torch import engine as TE
 from repro_torch.core import stencil as TS
 from repro_torch.interop import grid_from_numpy, grid_to_numpy
-from repro_torch.obs.trace import Tracer, use_tracer
+from repro_torch.obs.trace import Tracer, span_records, use_tracer
 
 SPECS = {
     "jacobi5": (JS.jacobi_2d_5pt(), TS.jacobi_2d_5pt()),
@@ -235,3 +236,80 @@ def test_spans_keep_the_reference_names():
     run_ev = next(e for e in tracer.events if e.name == "engine.run")
     assert run_ev.attrs["policy"] == "temporal"
     assert (run_ev.attrs["fused_blocks"], run_ev.attrs["remainder"]) == (2, 1)
+
+
+class _CardGrid(torch.Tensor):
+    """A CPU tensor that reports itself on a card, so that the port takes
+    its kernel path (with the library and the card context faked)."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class _FakeLib:
+    """Stands in for the built stencil library on the CPU: records each
+    launcher's name and arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def launcher(*args):
+            self.calls.append((name, args))
+            return 0
+        return launcher
+
+
+@pytest.mark.parametrize("donate", [False, True])
+@pytest.mark.parametrize("iters", [19, 8, 40, 17])
+def test_fused_blocks_go_to_the_library_in_one_call(monkeypatch, iters,
+                                                    donate):
+    """On a card a schedule's fused blocks are one ``repro_temporal_chain``
+    call (u into buf_a, then buf_a and buf_b in turn, buf_b being u when
+    donated); the remainder launches one K2 each, ping-ponging on from the
+    chain's last output; every launch counts in LAUNCHES, under its
+    variant, and the chained ones in ``engine.launches.chained``."""
+    from repro_torch.engine import policies as P
+    from repro_torch.obs import metrics
+    lib = _FakeLib()
+    monkeypatch.setattr(P, "_lib", lambda: lib)
+    monkeypatch.setattr(P, "_on_card",
+                        lambda *operands: contextlib.nullcontext(7))
+    spec = TS.jacobi_2d_5pt()
+    u = torch.zeros((2, 34, 130)).as_subclass(_CardGrid)
+    blocks, rem = divmod(iters, 8)
+    TE.reset_launch_counts()
+    chained0 = metrics.counter("engine.launches.chained").value
+    tracer = Tracer()
+    with use_tracer(tracer):
+        out = TE.run(u, spec, policy="temporal", iters=iters, t=8,
+                     device="gpu_sm90", donate=donate)
+    assert [n for n, _ in lib.calls] == (["repro_temporal_chain"]
+                                         + ["repro_rowchunk"] * rem)
+    (_, chain), *sweeps = lib.calls
+    src, a, b, n = chain[:4]
+    assert (src, n) == (u.data_ptr(), blocks)
+    assert a != src and (b == src if donate else b not in (src, a))
+    if blocks + rem == 1 and not donate:
+        assert b is None  # one launch needs no second buffer
+    plan = TE.plan_for(u.shape[-2:], u.dtype, spec, "temporal", t=8,
+                       device="gpu_sm90")
+    assert list(chain[4:16]) == [0, 0, 2, 34, 130, 1, 8, plan.bm, plan.bn,
+                                 plan.row_tiles, plan.col_tiles, 4]
+    assert chain[-2:] == (0, 7)
+    last = a if blocks % 2 else b
+    for _, args in sweeps:
+        nxt = b if last == a else a
+        assert args[:2] == (last, nxt)
+        last = nxt
+    assert out.data_ptr() == last
+    assert TE.LAUNCHES == {"shifted": 0, "rowchunk": rem, "dbuf": 0,
+                           "temporal": blocks}
+    assert TE.TEMPORAL_VARIANTS == {
+        k: blocks * (k == "jacobi5") for k in TE.TEMPORAL_VARIANTS}
+    assert metrics.counter("engine.launches.chained").value == (
+        chained0 + blocks)
+    spans = [r for r in span_records(tracer) if r["name"] == "engine.launches"]
+    assert [r["attrs"]["launches"] for r in spans] == [blocks + rem]
+    TE.reset_launch_counts()

@@ -346,31 +346,42 @@ def test_temporal_geometries_match_the_compiled_source():
     quads = int(re.search(r"#define QUADS (\d+)", src).group(1))
     assert "#define TROW (4 * QUADS)" in src
     assert TP.TEMPORAL_ROW == 4 * quads
-    launcher = src[src.index("repro_temporal_geo("):]
+    assert int(re.search(r"#define LEVELS (\d+)", src).group(1)) == (
+        TP.TEMPORAL_LEVELS)
+    launcher = src[src.index("static cudaError_t with_temporal("):]
     for code, (name, struct) in enumerate(structs.items()):
         body = src[src.index(f"struct {struct} {{"):]
         body = body[:body.index("\n};")]
         arrays = [tuple(int(v) for v in m.split(","))
                   for m in re.findall(r"a\[N\] = \{([^}]*)\}", body)]
         assert tuple(zip(*arrays)) == TP.TEMPORAL_GEOMETRIES[name]
-        assert f"case {code}: return run(type, Type<{struct}>{{}});" in (
-            launcher)
+        assert f"case {code}: return geo(Type<{struct}>{{}});" in launcher
+        pipe = re.search(r"static constexpr bool PIPE = (true|false);", body)
+        assert (pipe.group(1) == "true") == (name in TP.TEMPORAL_PIPELINE)
 
 
 @pytest.mark.parametrize("spec_name,bm,bn,t,masked", [
     ("jacobi5", 64, 96, 8, False), ("jacobi5", 64, 96, 8, True),
     ("jacobi5", 32, 112, 8, False), ("laplace9", 16, 64, 3, False),
-    ("radius2", 64, 96, 8, True), ("radius2", 128, 96, 1, False)])
+    ("radius2", 64, 96, 8, True), ("radius2", 128, 96, 1, False),
+    ("jacobi5", 32, 64, 16, False), ("radius2", 16, 48, 12, False)])
 def test_smem_2d_temporal_is_the_compiled_layout(spec_name, bm, bn, t,
                                                  masked):
-    """Two f32 tiles of (bm + 2tr) rows of TEMPORAL_ROW cells, plus a pin
-    byte a cell when masked; the general K1 keeps bn + 2tr columns."""
+    """From shared memory (every plan but the register pipeline's: masked,
+    another t than TEMPORAL_LEVELS, or the 9-point geometry): two f32
+    tiles of (bm + 2tr) rows of TEMPORAL_ROW cells, plus a pin byte a cell
+    when masked; the register pipeline takes none; the general K1 keeps
+    bn + 2tr columns."""
     spec = SPECS[spec_name][1]
     r = spec.radius
     rows = bm + 2 * t * r
     halo, nbytes = TP.smem_2d("temporal", 2, spec, bm, bn, t, masked)
     assert halo == t * r
-    assert nbytes == rows * TP.TEMPORAL_ROW * (9 if masked else 8)
+    pipeline = (not masked and t == TP.TEMPORAL_LEVELS
+                and spec_name in TP.TEMPORAL_PIPELINE)
+    assert TP.register_pipeline(spec, t, masked) == pipeline
+    assert nbytes == (0 if pipeline
+                      else rows * TP.TEMPORAL_ROW * (9 if masked else 8))
     general = TS.StencilSpec(spec.offsets[::-1], spec.weights[::-1])
     assert TP.smem_2d("temporal", 2, general, bm, bn, t, masked)[1] == (
         rows * (bn + 2 * t * r) * (9 if masked else 8))
@@ -396,3 +407,70 @@ def test_compiled_temporal_tile_fits_one_row(spec_name, t, bn):
                     t=TP.TEMPORAL_ROW // (2 * spec.radius),
                     device="gpu_sm90")
 
+
+@pytest.mark.parametrize("spec_name,t,bn", [
+    ("jacobi5", 8, 112), ("jacobi5", 16, 96), ("jacobi5", 20, 88),
+    ("radius2", 8, 96), ("radius2", 12, 80), ("laplace9", 63, 2)])
+def test_masked_compiled_temporal_tile_fits_one_row(spec_name, t, bn):
+    """The masked K1 runs from shared memory at every t: its tile is
+    GPU_TILE_TEMPORAL_SMEM's, bn clipped to the row, a full row refused."""
+    spec = SPECS[spec_name][1]
+    plan = TP.plan_for((1026, 9218), torch.float32, spec, "temporal", t=t,
+                       device="gpu_sm90", masked=True)
+    assert (plan.bm, plan.bn) == (TP.GPU_TILE_TEMPORAL_SMEM[0], bn)
+    assert plan.bn + 2 * plan.halo <= TP.TEMPORAL_ROW
+    assert plan.vmem_bytes == (plan.bm + 2 * plan.halo) * TP.TEMPORAL_ROW * 9
+    with pytest.raises(TP.PlanError, match="gpu_sm90"):
+        TP.plan_for((1026, 9218), torch.float32, spec, "temporal",
+                    t=TP.TEMPORAL_ROW // (2 * spec.radius),
+                    device="gpu_sm90", masked=True)
+
+
+@pytest.mark.parametrize("td", [torch.float32, torch.bfloat16])
+def test_register_pipeline_plan(td):
+    """The register pipeline (the main path: unmasked, t = 8, jacobi5 or
+    radius2): its default tile is a segment of GPU_TILES rows by a strip's
+    112 output columns, its window the t·r halo around them, its shared
+    memory none. Any other t, and the 9-point geometry, run from shared
+    memory at its tile; a halo that leaves the row no column is refused
+    by name."""
+    ts = TS.jacobi_2d_5pt()
+    plan = TP.plan_for((1026, 9218), td, ts, "temporal", t=8,
+                       device="gpu_sm90")
+    assert (plan.bm, plan.bn) == TP.GPU_TILES["temporal"] == (41, 112)
+    assert (plan.halo, plan.window_rows, plan.window_cols) == (8, 57, 128)
+    assert plan.vmem_bytes == 0 and (plan.row_tiles, plan.col_tiles) == (
+        25, 83)
+    # The masked and the general K1 keep their shared-memory tile.
+    for spec, masked in [(ts, True), (TS.StencilSpec(ts.offsets[::-1],
+                                                     ts.weights), False)]:
+        other = TP.plan_for((1026, 9218), td, spec, "temporal", t=8,
+                            device="gpu_sm90", masked=masked)
+        assert (other.bm, other.bn) == TP.GPU_TILE_TEMPORAL_SMEM
+        assert other.vmem_bytes > 0
+    wide = TP.plan_for((1026, 9218), td, ts, "temporal", bn=200,
+                       device="gpu_sm90")
+    assert wide.bn == TP.TEMPORAL_ROW - 2 * 8 and wide.vmem_bytes == 0
+    radius2 = TP.plan_for((1028, 9220), td, SPECS["radius2"][1], "temporal",
+                          device="gpu_sm90")
+    assert (radius2.bm, radius2.bn, radius2.vmem_bytes) == (41, 96, 0)
+    for spec, t in [(ts, 1), (ts, 3), (SPECS["laplace9"][1], 8)]:
+        assert not TP.register_pipeline(spec, t, False)
+        other = TP.plan_for((70, 300), td, spec, "temporal", t=t,
+                            device="gpu_sm90")
+        assert other.bm == 40 and other.vmem_bytes == (
+            (40 + 2 * t) * TP.TEMPORAL_ROW * 8)
+    assert TP.register_pipeline(ts, TP.TEMPORAL_LEVELS, False)
+    deep = TP.plan_for((1026, 9218), td, ts, "temporal",
+                       t=TP.TEMPORAL_LEVELS + 1, device="gpu_sm90")
+    assert not TP.register_pipeline(ts, deep.t, deep.masked)
+    assert (deep.bm, deep.bn) == (TP.GPU_TILE_TEMPORAL_SMEM[0],
+                                  TP.TEMPORAL_ROW - 2 * deep.t)
+    assert deep.vmem_bytes == (40 + 18) * TP.TEMPORAL_ROW * 8
+    with pytest.raises(TP.PlanError) as err:
+        TP.plan_for((1026, 9218), td, ts, "temporal", t=64,
+                    device="gpu_sm90")
+    assert str(err.value) == (
+        "policy 'temporal' for grid (1026, 9218) (t=64) on gpu_sm90: a "
+        "128-column halo leaves no room in the compiled kernel's 128-cell "
+        "tile row — lower t")
